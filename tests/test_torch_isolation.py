@@ -1,0 +1,62 @@
+"""The port and chip_smoke.py run without JAX, Flax, orbax or the JAX package: the GPU
+machine has none of them."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import tf_depth_estimation_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "flax", "orbax", "tf_depth_estimation_tpu")
+
+_CHILD = r"""
+import importlib, pkgutil, sys
+for name in %(forbidden)r:
+    sys.modules[name] = None          # any import of it raises ImportError
+import tf_depth_estimation_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+import chip_smoke
+from tf_depth_estimation_torch.utils.npz import load_variables_npz
+variables, _ = load_variables_npz(chip_smoke.TEACHER)
+fwd = chip_smoke.phase_forward(variables, "cpu", height=64, width=96, batch=2)
+served = chip_smoke.phase_serving(variables, "cpu", height=64, width=96, batch=8)
+assert fwd["launches"] == 0 and served["frames"] == 14, (fwd, served)
+print("ISOLATED_OK")
+"""
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.dirname(tf_depth_estimation_torch.__file__)):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def test_port_and_smoke_run_with_jax_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", _CHILD % {"forbidden": FORBIDDEN}], cwd=ROOT,
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert "ISOLATED_OK" in out.stdout
+
+
+def test_every_port_module_is_imported_by_the_child():
+    names = {m.name for m in pkgutil.walk_packages(tf_depth_estimation_torch.__path__,
+                                                   "tf_depth_estimation_torch.")}
+    assert {"tf_depth_estimation_torch.ops.fused_tail",
+            "tf_depth_estimation_torch.infer.cli",
+            "tf_depth_estimation_torch.weights"} <= names
+
+
+def test_no_port_file_names_jax_in_an_import():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(%s)\b" % "|".join(re.escape(f) for f in FORBIDDEN),
+        re.MULTILINE)
+    files = _port_files()
+    assert len(files) > 10
+    offenders = [f for f in files if pattern.search(open(f).read())]
+    assert offenders == []

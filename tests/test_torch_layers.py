@@ -1,0 +1,106 @@
+"""Port layers (TF SAME conv, TF transposed conv, eval slim BN) against the JAX layers."""
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from tf_depth_estimation_tpu.models.layers import SlimConv as JSlimConv
+from tf_depth_estimation_tpu.models.layers import TFConvTranspose as JTFConvTranspose
+from tf_depth_estimation_torch.models import layers
+
+TOL = dict(rtol=1e-5, atol=1e-5)  # f32 convs: the same products summed in another order
+
+
+def _rand(shape, seed):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def _nchw(x):
+    return torch.from_numpy(x).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("hw", [(12, 16), (11, 15)])
+@pytest.mark.parametrize("k,stride", [(3, 1), (3, 2), (7, 1), (7, 2)])
+def test_conv2d_same_matches_tf_same(hw, k, stride):
+    x, w = _rand((2, *hw, 5), 0), _rand((k, k, 5, 6), 1)
+    ref = jax.lax.conv_general_dilated(jnp.asarray(x), jnp.asarray(w), (stride, stride),
+                                       "SAME", dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    got = layers.conv2d_same(_nchw(x), torch.from_numpy(w).permute(3, 2, 0, 1),
+                             stride=stride)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref), **TOL)
+
+
+def test_symmetric_padding_would_shift_7x7_s2():
+    """TF pads 2 on top and 3 below at 7x7/s2 on an even size; padding=3 is off by one."""
+    x, w = _rand((1, 12, 16, 3), 2), _rand((7, 7, 3, 4), 3)
+    wt = torch.from_numpy(w).permute(3, 2, 0, 1)
+    ours = layers.conv2d_same(_nchw(x), wt, stride=2)
+    naive = F.conv2d(_nchw(x), wt, stride=2, padding=3)
+    assert ours.shape == naive.shape
+    assert not torch.allclose(ours, naive, atol=1e-3)
+
+
+@pytest.mark.parametrize("hw", [(5, 7), (6, 8), (1, 3)])
+def test_tf_conv_transpose_matches_jax(hw):
+    x = _rand((2, *hw, 8), 4)
+    mod = JTFConvTranspose(features=6, kernel=(3, 3))
+    variables = mod.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    ref = mod.apply(variables, jnp.asarray(x))
+    port = layers.TFConvTranspose(8, 6)
+    with torch.no_grad():   # [kh, kw, out, in] -> [in, out, kh, kw], no flip
+        port.weight.copy_(torch.from_numpy(
+            np.array(variables["params"]["kernel"])).permute(3, 2, 0, 1))
+        got = port(_nchw(x))
+    assert got.shape[-2:] == (2 * hw[0], 2 * hw[1])
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_slim_conv_eval_bn_matches_jax(transpose):
+    """conv -> eval BN (eps 1e-3, no scale) -> ReLU with non-trivial running stats."""
+    x = _rand((2, 6, 10, 4), 5)
+    mod = JSlimConv(features=7, kernel=(3, 3), stride=2 if transpose else 1,
+                    transpose=transpose)
+    variables = jax.tree.map(np.array, mod.init(jax.random.PRNGKey(1), jnp.asarray(x),
+                                                  train=False))
+    rng = np.random.RandomState(6)
+    bn = variables["batch_stats"]["BatchNorm_0"]
+    bn["mean"] = rng.randn(7).astype(np.float32)
+    bn["var"] = rng.rand(7).astype(np.float32) + 0.1
+    variables["params"]["BatchNorm_0"]["bias"] = rng.randn(7).astype(np.float32)
+    ref = mod.apply(variables, jnp.asarray(x), train=False)
+
+    port = layers.SlimConv(4, 7, 3, 2 if transpose else 1, transpose=transpose).eval()
+    kind = "TFConvTranspose_0" if transpose else "Conv_0"
+    with torch.no_grad():
+        port.conv.weight.copy_(torch.from_numpy(
+            variables["params"][kind]["kernel"]).permute(3, 2, 0, 1))
+        port.bn.bias.copy_(torch.from_numpy(variables["params"]["BatchNorm_0"]["bias"]))
+        port.bn.running_mean.copy_(torch.from_numpy(bn["mean"]))
+        port.bn.running_var.copy_(torch.from_numpy(bn["var"]))
+        got = port(_nchw(x))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref), **TOL)
+
+
+def test_eval_bn_matches_flax_batchnorm():
+    x = _rand((3, 4, 5, 6), 7)
+    rng = np.random.RandomState(8)
+    mean, var, bias = rng.randn(6), rng.rand(6) + 0.05, rng.randn(6)
+    bn = fnn.BatchNorm(use_running_average=True, epsilon=1e-3, use_scale=False)
+    ref = bn.apply({"params": {"bias": bias}, "batch_stats": {"mean": mean, "var": var}},
+                   jnp.asarray(x))
+    port = layers.SlimBatchNorm(6).eval()
+    with torch.no_grad():
+        port.bias.copy_(torch.from_numpy(bias))
+        port.running_mean.copy_(torch.from_numpy(mean))
+        port.running_var.copy_(torch.from_numpy(var))
+        got = port(_nchw(x))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref), **TOL)
+
+
+def test_train_mode_bn_is_refused():
+    with pytest.raises(NotImplementedError):
+        layers.SlimBatchNorm(3).train()(torch.zeros(1, 3, 2, 2))

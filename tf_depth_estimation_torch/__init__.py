@@ -1,0 +1,18 @@
+"""PyTorch / CUDA port of tf_depth_estimation_tpu for NVIDIA Hopper GPUs.
+
+The JAX package beside it is the reference; this package imports neither JAX nor it. The
+first slice serves depth4 DispNet: ``infer.DepthPredictor`` and ``infer.fast_depth_forward``
+over ``models.DispNet``, with the decoder tail as the CUDA kernel ``csrc/fused_tail.cu``.
+"""
+from tf_depth_estimation_torch.infer import DepthPredictor, fast_depth_forward
+from tf_depth_estimation_torch.models import DispNet, DispNetVariant
+from tf_depth_estimation_torch.utils.npz import load_variables_npz, save_variables_npz
+from tf_depth_estimation_torch.weights import (
+    dispnet_from_variables,
+    state_dict_to_variables,
+    variables_to_state_dict,
+)
+
+__all__ = ["DepthPredictor", "DispNet", "DispNetVariant", "dispnet_from_variables",
+           "fast_depth_forward", "load_variables_npz", "save_variables_npz",
+           "state_dict_to_variables", "variables_to_state_dict"]

@@ -1,0 +1,4 @@
+"""Models of the PyTorch port."""
+from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
+
+__all__ = ["DispNet", "DispNetVariant"]
