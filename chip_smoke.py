@@ -1,43 +1,75 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check and time the CUDA kernel,
-then serve depth4 DispNet at 576x384 with the committed teacher weights.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check and time the CUDA kernels,
+serve depth4 DispNet at 576x384 with the committed teacher weights, and train config 4
+(depth10_flow, joint depth + optical flow) at 224x480.
 
     python3 chip_smoke.py
 
 Phases, each raising on failure:
   1. device: the card's name and count, and nvidia-smi's name and power limit;
-  2. build: nvcc -> shared library -> ctypes for the kernel, with nvcc's wall time and the
-     -Xptxas -v register and shared-memory lines;
+  2. build: nvcc -> shared library -> ctypes for every kernel, one nvcc per source, all
+     started together, with nvcc's wall times and the -Xptxas -v lines;
   3. kernel vs plain: ``fused_tail`` against ``fused_tail_reference`` at the tail's shapes
      of a 576x384 batch of 8, teacher weights, seeded inputs, in float32 and bf16;
   4. whole forward: ``fast_depth_forward`` in float32 with the fused tail against the
      plain module forward (``DispNet`` eval, native tail) at rtol = atol = 2e-4;
-  5. serving, the main path: a ``DepthPredictor`` answers requests of 8, 5 and 1 frames;
+  5. serving, a main path: a ``DepthPredictor`` answers requests of 8, 5 and 1 frames;
      the kernels' launch counts are set to 0 just before and read just after;
-  6. times with CUDA events: the kernel, its plain version and its bound at batch 8 and 64,
-     and the bf16 forward's frames/s at batch 64.
+  6. times with CUDA events: the tail kernel, its plain version and its bound at batch 8
+     and 64, and the bf16 forward's frames/s at batch 64;
+  7. kernel vs plain: ``bilinear_sample`` against ``bilinear_sample_reference`` at config
+     4's shapes (B=10, 224x480x3, pixels in [0, 255]) with the coords of a real depth warp,
+     wild coords, exact-integer coords and an odd non-square size; forward and dcoords;
+  8. training, a main path: the config-4 CLI (``train/experiments/optflow_combine.py``,
+     bf16, batch 10, 240x720 JPEG pairs read and resized to 224x480) on a synthetic
+     dataset for 5 steps, with the launch counts set to 0 before and read after (12
+     ``bilinear_sample`` launches a step); every loss component finite; the checkpoint
+     read back into ``DispNet(depth10_flow)`` and its eval forward finite;
+  9. step parity: one float32 step with the kernel against one with the plain sampler
+     from one init and batch, and the bf16 step's loss against the float32 one;
+ 10. times: the sampler kernel, its plain version, ``grid_sample`` and the bound at scale
+     0 and over a step's 12 calls; ms/step and frames/s of the bf16 training step with
+     the kernel and with the plain sampler.
 The line before the last is one JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``. There is no CPU path: without CUDA it exits non-zero.
 TF32 is off throughout, so the float32 checks are float32 and not TF32.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import subprocess
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from tf_depth_estimation_torch.data.colon import PairDepthDataset
+from tf_depth_estimation_torch.data.pipeline import BatchLoader, to_device
+from tf_depth_estimation_torch.data.synthetic import write_colon_pair_dataset
+from tf_depth_estimation_torch.geometry.warp import projective_inverse_warp
 from tf_depth_estimation_torch.infer.fast import fast_depth_forward, fold_weights, folded_forward
 from tf_depth_estimation_torch.infer.predictor import DepthPredictor
+from tf_depth_estimation_torch.losses.config import LossWeights
+from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
 from tf_depth_estimation_torch.ops import _build
+from tf_depth_estimation_torch.ops.bilinear_sample import (
+    bilinear_sample,
+    bilinear_sample_reference,
+)
 from tf_depth_estimation_torch.ops.fused_tail import (
     N_PARAMS,
     fused_tail,
     fused_tail_reference,
 )
+from tf_depth_estimation_torch.train.experiments import optflow_combine
+from tf_depth_estimation_torch.train.state import create_train_state
+from tf_depth_estimation_torch.train.steps import make_optflow_combine_step
 from tf_depth_estimation_torch.utils.npz import load_variables_npz
 from tf_depth_estimation_torch.weights import dispnet_from_variables
 
@@ -57,6 +89,28 @@ TOL_FORWARD = 2e-4  # rtol = atol of tests/test_fast_infer.py
 # of this script measured max 9.0e-3 and mean 2.23e-3 at 576x384; the limits allow about
 # 2.5x that.
 TOL_SERVING = (2.5e-2, 5e-3)
+# config 4, the training path (train/experiments/optflow_combine.py defaults): 240x720
+# JPEG pairs read and resized to 224x480, batch 10, bf16
+C4_HEIGHT, C4_WIDTH, C4_READ, C4_BATCH, C4_STEPS = 224, 480, (240, 720), 10, 5
+LAUNCHES_PER_STEP = 12   # 3 warps (GT depth, predicted depth, flow) at each of 4 scales
+# bilinear_sample vs its plain version, (max, mean) abs error: out on pixels in [0, 255],
+# wmask in [0, 1]. The kernel rounds every product and sum on its own in the reference's
+# order (__fmul_rn / __fadd_rn), as PyTorch's elementwise ops do, so it is expected to be
+# exact; a sum contracted into FMAs would differ by up to ~2 ulp of 255 (3.05e-5) and of
+# 1 (2.4e-7), which the limits allow, while a wrong tap or weight moves values by whole
+# pixel differences.
+TOL_SAMPLE = {"out": (3.1e-5, 1e-6), "wmask": (2.4e-7, 1e-8)}
+# dcoords through the autograd function (corners from the kernel) vs autograd of the
+# plain version: the same terms summed in another order, |dcoords| up to ~2e3 here
+TOL_DCOORDS = dict(rtol=1e-5, atol=1e-5 * 255)
+# one float32 step, kernel vs plain sampler, from one init and batch: the loss components
+# come from identical forwards up to cuDNN's sum order (rtol 1e-5); after Adam's first
+# step a parameter moved by ~lr * sign(g) in both, so every parameter is within 2 lr and
+# all but 1 % within 1e-6 (tests/test_torch_train.py holds the port to JAX the same way)
+TOL_STEP = {"loss_rtol": 1e-5, "param_atol": 1e-6, "param_share_off": 0.01}
+# the bf16 step's first loss against the float32 one from the same init: bf16 activations
+# (2^-8 relative) through ~45 convolutions; 0.08 % on the CPU at 64x96
+TOL_BF16_LOSS = 0.02
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32, PEAK_BF16, PEAK_HBM = 67e12, 989e12, 3.35e12
 
@@ -76,12 +130,19 @@ def phase_device() -> dict:
     return info
 
 
+KERNELS = ("fused_tail", "bilinear_sample")
+
+
 def phase_build() -> None:
-    entry = _build.build("fused_tail")
-    print(f"build: fused_tail: nvcc {entry['seconds']:.2f} s wall")
-    for line in entry["log"].splitlines():
-        if "ptxas info" in line or "spill" in line:
-            print(f"  {line.strip()}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as ex:   # one nvcc per source, all at once
+        entries = dict(zip(KERNELS, ex.map(_build.build, KERNELS)))
+    print(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s wall")
+    for name, entry in entries.items():
+        print(f"build: {name}: nvcc {entry['seconds']:.2f} s wall")
+        for line in entry["log"].splitlines():
+            if "ptxas info" in line or "spill" in line:
+                print(f"  {line.strip()}")
 
 
 def tail_inputs(batch: int, dtype: torch.dtype, device) -> tuple:
@@ -245,6 +306,269 @@ def phase_times(folded_by_dtype: dict, smi: str) -> dict:
               f" {batch / ms * 1e3:.1f} frames/s [{smi}]")
     return rows
 
+def sample_bound(B: int, Hs: int, Ws: int, Ht: int, Wt: int, C: int,
+                 corners: bool = False) -> tuple:
+    """Least time (ms) an H100 SXM needs for one sampler call: imgs and coords read once,
+    out and wmask (and the corner planes, when the backward needs them) written once;
+    about 19 + 7 C float32 operations per output pixel."""
+    n = B * Ht * Wt
+    nbytes = 4 * (B * Hs * Ws * C + 2 * n + C * n + n + (4 * C * n if corners else 0))
+    t_bytes, t_ops = nbytes / PEAK_HBM, n * (19 + 7 * C) / PEAK_F32
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def warp_coords(B: int, H: int, W: int, device, seed: int = SEED + 2) -> torch.Tensor:
+    """The coords of a real depth warp: seeded depth in [0.8, 2.5], a translation of up to
+    5 cm and a rotation of up to 0.02 rad about the optical axis, config 4's intrinsics."""
+    g = np.random.RandomState(seed)
+    depth = torch.from_numpy(g.uniform(0.8, 2.5, (B, H, W)).astype(np.float32))
+    K = torch.tensor([[0.9 * W, 0.0, W / 2], [0.0, 0.9 * W, H / 2], [0.0, 0.0, 1.0]])
+    pose = torch.eye(4).repeat(B, 1, 1)
+    a = torch.from_numpy(g.uniform(-0.02, 0.02, B).astype(np.float32))
+    pose[:, 0, 0], pose[:, 0, 1], pose[:, 1, 0], pose[:, 1, 1] = a.cos(), -a.sin(), a.sin(), a.cos()
+    pose[:, :3, 3] = torch.from_numpy(g.uniform(-0.05, 0.05, (B, 3)).astype(np.float32))
+    img = torch.zeros((B, H, W, 1))
+    warp = projective_inverse_warp(img.to(device), depth.to(device), pose.to(device),
+                                   K.expand(B, 3, 3).contiguous().to(device), fmt="matrix")
+    return warp.coords
+
+
+def sampler_cases(device) -> dict:
+    """name -> (imgs [B,Hs,Ws,3] in [0, 255], coords [B,Ht,Wt,2]) at config 4's shapes."""
+    g = np.random.RandomState(SEED + 3)
+    B, H, W = C4_BATCH, C4_HEIGHT, C4_WIDTH
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    imgs = t(g.rand(B, H, W, 3) * 255)
+    gy, gx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    grid = np.stack([gx, gy], -1)[None]
+    return {
+        "warp": (imgs, warp_coords(B, H, W, device)),
+        "wild": (imgs, t(g.rand(B, H, W, 2) * [4 * W, 4 * H] - [2 * W, 2 * H])),
+        "integer": (imgs, t(grid + g.randint(-3, 4, (B, H, W, 2)))),
+        "odd": (t(g.rand(B, 37, 53, 3) * 255), t(g.rand(B, 29, 61, 2) * [55, 39] - 1)),
+    }
+
+
+def phase_sampler(device, smi: str) -> dict:
+    """bilinear_sample vs bilinear_sample_reference: forward everywhere, dcoords on the
+    real warp and on integer coords."""
+    worst = {"out": 0.0, "wmask": 0.0, "dcoords": 0.0}
+    for name, (imgs, coords) in sampler_cases(device).items():
+        got = bilinear_sample(imgs, coords)
+        ref = bilinear_sample_reference(imgs, coords)
+        torch.cuda.synchronize()
+        for what, g, r in zip(("out", "wmask"), got, ref):
+            if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"bilinear_sample {name} {what}: shape "
+                                     f"{tuple(g.shape)} vs {tuple(r.shape)} or non-finite")
+            err, mean = (g - r).abs().max().item(), (g - r).abs().mean().item()
+            tol_max, tol_mean = TOL_SAMPLE[what]
+            print(f"kernel bilinear_sample {name} {tuple(imgs.shape)} at "
+                  f"{tuple(coords.shape)}: {what} abs err max {err:.3e}, mean {mean:.3e} "
+                  f"vs bilinear_sample_reference, tolerance max {tol_max:.1e}, mean "
+                  f"{tol_mean:.0e} [{smi}]")
+            if err > tol_max or mean > tol_mean:
+                raise AssertionError(f"bilinear_sample {name} {what}: abs err max {err}, "
+                                     f"mean {mean} beyond {tol_max}, {tol_mean}")
+            worst[what] = max(worst[what], err)
+        if name not in ("warp", "integer"):
+            continue
+        g = np.random.RandomState(SEED + 4)
+        dout = torch.from_numpy(g.randn(*imgs.shape[:1], *coords.shape[1:3], 3)
+                                .astype(np.float32)).to(device)
+        dmask = torch.from_numpy(g.randn(*coords.shape[:3], 1).astype(np.float32)).to(device)
+        grads = []
+        for fn in (bilinear_sample, bilinear_sample_reference):
+            c = coords.clone().requires_grad_(True)
+            out, mask = fn(imgs, c)
+            torch.autograd.backward([out, mask], [dout, dmask])
+            grads.append(c.grad)
+        err = (grads[0] - grads[1]).abs().max().item()
+        print(f"kernel bilinear_sample {name}: dcoords abs err max {err:.3e} vs autograd "
+              f"of the plain version (|dcoords| max {grads[1].abs().max().item():.1f}), "
+              f"tolerance rtol {TOL_DCOORDS['rtol']:.0e}, atol {TOL_DCOORDS['atol']:.2e} "
+              f"[{smi}]")
+        torch.testing.assert_close(grads[0], grads[1], **TOL_DCOORDS)
+        worst["dcoords"] = max(worst["dcoords"], err)
+    return worst
+
+
+def write_dataset(root: str, batch: int = C4_BATCH, read_hw=C4_READ) -> str:
+    """A synthetic colon pair dataset (JPEG pairs, raw depth, intrinsics, projections)
+    with ``batch`` training pairs at ``read_hw``."""
+    return write_colon_pair_dataset(os.path.join(root, "colon"), num_frames=2 * batch,
+                                    H=read_hw[0], W=read_hw[1], seed=SEED)
+
+
+def phase_training(device, dataset: str, *, height: int = C4_HEIGHT,
+                   width: int = C4_WIDTH, read_hw=C4_READ, batch: int = C4_BATCH,
+                   steps: int = C4_STEPS, dtype: str = "bfloat16", smi: str = "") -> dict:
+    """The config-4 CLI for ``steps`` steps; every loss component finite; the checkpoint
+    read back into depth10_flow DispNet and its eval forward finite."""
+    ckpt = os.path.join(os.path.dirname(dataset), "checkpoints")
+    t0 = time.perf_counter()
+    state, _ = optflow_combine.main([
+        "--dataset_dir", dataset, "--checkpoint_dir", ckpt, "--batch_size", str(batch),
+        "--max_steps", str(steps), "--summary_freq", "1", "--save_latest_freq", str(steps),
+        "--image_height", str(read_hw[0]), "--image_width", str(read_hw[1]),
+        "--resized_height", str(height), "--resized_width", str(width),
+        "--dtype", dtype, "--device", str(device), "--seed", str(SEED)])
+    if device != "cpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    comps = ("total", "depth", "smooth", "optflow", "pixel")
+    if state.step != steps or len(records) != steps or not all(
+            np.isfinite(r[k]) for r in records for k in comps):
+        raise AssertionError(f"training: step {state.step}, {len(records)} records, "
+                             f"losses {records}")
+    for r in records:
+        print(f"training step {r['step']}: " + ", ".join(f"{k} {r[k]:.4f}" for k in comps)
+              + f" [{smi}]")
+    variables, meta = load_variables_npz(os.path.join(ckpt, f"model-{steps}.npz"))
+    model = dispnet_from_variables(variables, device=device)
+    x = torch.from_numpy(next(iter(BatchLoader(
+        PairDepthDataset(dataset, image_height=read_hw[0], image_width=read_hw[1],
+                         resized_height=height, resized_width=width),
+        batch, num_workers=1)))["tgt_image"]).to(device).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        outs = model(x)
+    shapes = [(batch, c, height >> s, width >> s) for c in (1, 2) for s in range(4)]
+    if model.variant.name != "depth10_flow" or [tuple(o.shape) for o in outs] != shapes \
+            or not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError(f"checkpoint step {meta.get('step')}: {model.variant.name}, "
+                             f"outputs {[tuple(o.shape) for o in outs]} or non-finite")
+    print(f"training: {steps} steps of config 4 ({dtype}, {height}x{width}, batch {batch}) "
+          f"through the CLI in {seconds:.1f} s host clock; every loss component finite; "
+          f"model-{steps}.npz read back into DispNet({model.variant.name}), eval forward "
+          f"finite, d1 in [{outs[0].min().item():.3f}, {outs[0].max().item():.3f}] [{smi}]")
+    return {"steps": steps, "seconds": seconds}
+
+
+def first_batch(dataset: str, device) -> dict:
+    ds = PairDepthDataset(dataset, image_height=C4_READ[0], image_width=C4_READ[1],
+                          resized_height=C4_HEIGHT, resized_width=C4_WIDTH)
+    return to_device(next(iter(BatchLoader(ds, C4_BATCH, num_workers=1))), device)
+
+
+def config4_state(device, sd: dict, dtype: torch.dtype):
+    model = DispNet(DispNetVariant.depth10_flow(), dtype=dtype)
+    model.load_state_dict(sd)
+    return create_train_state(model.to(device))
+
+
+def config4_step(sampler: str, batch: dict):
+    h, w = batch["tgt_image"].shape[1:3]
+    return make_optflow_combine_step(dataclasses.replace(
+        LossWeights.optflow_combine(), height=h, width=w, sampler=sampler))
+
+
+def phase_step_parity(device, batch: dict, smi: str) -> dict:
+    """One f32 step with the kernel vs one with the plain sampler from one init and batch;
+    the bf16 step's loss against the f32 one."""
+    sd = copy.deepcopy(DispNet(DispNetVariant.depth10_flow(),
+                               generator=torch.Generator().manual_seed(SEED)).state_dict())
+    runs = {}
+    for name, sampler, dtype in (("kernel", "pallas", torch.float32),
+                                 ("plain", "xla", torch.float32),
+                                 ("kernel_bf16", "pallas", torch.bfloat16)):
+        state, metrics = config4_step(sampler, batch)(config4_state(device, sd, dtype),
+                                                      batch)
+        runs[name] = ({k: float(v) for k, v in metrics.items()},
+                      {k: p.detach() for k, p in state.model.named_parameters()})
+        print(f"step parity {name}: " + ", ".join(f"{k} {v:.6f}"
+                                                  for k, v in runs[name][0].items()))
+    (lk, pk), (lp, pp), (lb, _) = runs["kernel"], runs["plain"], runs["kernel_bf16"]
+    loss_err = max(abs(lk[k] - lp[k]) / abs(lp[k]) for k in lp)
+    lr = 2e-4
+    off = total = 0
+    worst = 0.0
+    for k in pp:
+        diff = (pk[k] - pp[k]).abs()
+        worst = max(worst, diff.max().item())
+        off += int((diff > TOL_STEP["param_atol"]).sum())
+        total += diff.numel()
+    bf16_err = abs(lb["total"] - lp["total"]) / abs(lp["total"])
+    print(f"step parity f32, kernel vs plain sampler: loss components rel err max "
+          f"{loss_err:.2e} (tolerance {TOL_STEP['loss_rtol']:.0e}); params after Adam: max "
+          f"abs diff {worst:.2e} (tolerance 2 lr = {2 * lr:.0e}), {off} of {total} "
+          f"({off / total:.4%}) beyond {TOL_STEP['param_atol']:.0e} (tolerance "
+          f"{TOL_STEP['param_share_off']:.0%}); bf16 step-1 total {lb['total']:.4f} vs f32 "
+          f"{lp['total']:.4f}, rel {bf16_err:.2e} (tolerance {TOL_BF16_LOSS}) [{smi}]")
+    if loss_err > TOL_STEP["loss_rtol"] or worst > 2 * lr * (1 + 1e-4) \
+            or off / total >= TOL_STEP["param_share_off"] or bf16_err > TOL_BF16_LOSS:
+        raise AssertionError("step parity beyond its tolerances")
+    return {"loss_rel_err": loss_err, "param_share_off": off / total, "bf16_rel": bf16_err}
+
+
+def step_calls(device) -> list:
+    """The 12 sampler calls of a config-4 step: (imgs, coords, needs dcoords) per warp."""
+    g = np.random.RandomState(SEED + 5)
+    calls = []
+    for s in range(4):
+        h, w = C4_HEIGHT >> s, C4_WIDTH >> s
+        imgs = torch.from_numpy((g.rand(C4_BATCH, h, w, 3) * 255).astype(np.float32))
+        coords = warp_coords(C4_BATCH, h, w, device, seed=SEED + 10 + s)
+        imgs = imgs.to(device)
+        # GT-depth warp (no gradient), predicted-depth warp and flow warp (dcoords)
+        calls += [(imgs, coords, False), (imgs, coords.clone().requires_grad_(True), True),
+                  (imgs, coords.clone().requires_grad_(True), True)]
+    return calls
+
+
+def phase_sampler_times(device, smi: str) -> dict:
+    imgs, coords = sampler_cases(device)["warp"]
+    B, H, W, C = imgs.shape
+    grid = torch.stack([coords[..., 0] * (2.0 / (W - 1)) - 1,
+                        coords[..., 1] * (2.0 / (H - 1)) - 1], -1)
+    imgs_nchw = imgs.permute(0, 3, 1, 2)
+    ms = time_ms(lambda: bilinear_sample(imgs, coords), 50)
+    plain = time_ms(lambda: bilinear_sample_reference(imgs, coords), 20)
+    lib = time_ms(lambda: F.grid_sample(imgs_nchw, grid, mode="bilinear",
+                                        padding_mode="zeros", align_corners=True), 50)
+    bound, by = sample_bound(B, H, W, H, W, C)
+    print(f"time bilinear_sample scale 0 B={B} {H}x{W}x{C}: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, grid_sample {lib:.4f} ms, bound {bound:.4f} ms ({by}), "
+          f"kernel/bound {ms / bound:.1f}x [{smi}]")
+    calls = step_calls(device)
+    ms12 = time_ms(lambda: [bilinear_sample(i, c) for i, c, _ in calls], 20)
+    plain12 = time_ms(lambda: [bilinear_sample_reference(i, c) for i, c, _ in calls], 10)
+    libs = [(i.permute(0, 3, 1, 2), torch.stack(
+        [c[..., 0] * (2.0 / (i.shape[2] - 1)) - 1, c[..., 1] * (2.0 / (i.shape[1] - 1)) - 1],
+        -1).detach()) for i, c, _ in calls]
+    lib12 = time_ms(lambda: [F.grid_sample(i, g, mode="bilinear", padding_mode="zeros",
+                                           align_corners=True) for i, g in libs], 20)
+    bound12 = sum(sample_bound(i.shape[0], *i.shape[1:3], *c.shape[1:3], i.shape[3], g)[0]
+                  for i, c, g in calls)
+    print(f"time bilinear_sample, the 12 calls of a config-4 step (B={B}, scales "
+          f"{C4_HEIGHT}x{C4_WIDTH}..{C4_HEIGHT >> 3}x{C4_WIDTH >> 3}, 8 with corner planes):"
+          f" kernel {ms12:.4f} ms, plain {plain12:.4f} ms, grid_sample {lib12:.4f} ms, "
+          f"bound {bound12:.4f} ms [{smi}]")
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+            "bound_by": by, "ms12": ms12, "plain12": plain12, "lib12": lib12,
+            "bound12": bound12}
+
+
+def phase_training_times(device, batch: dict, smi: str) -> dict:
+    """ms/step of the bf16 config-4 step with the kernel and with the plain sampler, in
+    turns (plain, kernel, kernel, plain) on one state."""
+    sd = DispNet(DispNetVariant.depth10_flow(),
+                 generator=torch.Generator().manual_seed(SEED)).state_dict()
+    state = config4_state(device, sd, torch.bfloat16)
+    steps = {"kernel": config4_step("pallas", batch), "plain": config4_step("xla", batch)}
+    times = {"kernel": [], "plain": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        times[name].append(time_ms(lambda: steps[name](state, batch), 10))
+    out = {}
+    for name, ts in times.items():
+        ms = sum(ts) / len(ts)
+        out[name] = ms
+        print(f"time training step bf16 config 4 ({C4_HEIGHT}x{C4_WIDTH}, B={C4_BATCH}) sampler={name}: "
+              f"{ms:.2f} ms/step ({', '.join(f'{t:.2f}' for t in ts)}), "
+              f"{C4_BATCH / ms * 1e3:.1f} frames/s [{smi}]")
+    return out
+
 
 def main() -> None:
     t_start = time.perf_counter()
@@ -261,24 +585,53 @@ def main() -> None:
     if fwd["launches"] < 1:
         raise AssertionError("the f32 forward did not launch fused_tail")
 
-    fused_tail.launches = 0  # the main path: serving through DepthPredictor
+    fused_tail.launches = bilinear_sample.launches = 0  # a main path: serving
     phase_serving(variables, "cuda")
     torch.cuda.synchronize()
-    launches = {"fused_tail": fused_tail.launches}
-    print(f"serving launches: {launches}")
-    if launches["fused_tail"] < 1:
+    serving = {"fused_tail": fused_tail.launches, "bilinear_sample": bilinear_sample.launches}
+    print(f"serving launches: {serving}")
+    if serving["fused_tail"] < 1:
         raise AssertionError("serving did not launch fused_tail")
 
     rows = phase_times(folded, info["smi"])
     main_row = rows[(8, torch.bfloat16)]  # the serving path's shapes and dtype
+    sample_errs = phase_sampler("cuda", info["smi"])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dataset = write_dataset(tmp)
+        fused_tail.launches = bilinear_sample.launches = 0  # a main path: training
+        phase_training("cuda", dataset, smi=info["smi"])
+        torch.cuda.synchronize()
+        training = {"fused_tail": fused_tail.launches,
+                    "bilinear_sample": bilinear_sample.launches}
+        print(f"training launches: {training} in {C4_STEPS} steps [{info['smi']}]")
+        if training["bilinear_sample"] != LAUNCHES_PER_STEP * C4_STEPS:
+            raise AssertionError(f"training launched bilinear_sample "
+                                 f"{training['bilinear_sample']} times in {C4_STEPS} steps, "
+                                 f"not {LAUNCHES_PER_STEP} a step")
+        batch = first_batch(dataset, "cuda")
+    phase_step_parity("cuda", batch, info["smi"])
+    srow = phase_sampler_times("cuda", info["smi"])
+    phase_training_times("cuda", batch, info["smi"])
+
     kernels = [{
         "name": "fused_tail", "route": "cuda",
         "source": "tf_depth_estimation_torch/csrc/fused_tail.cu",
         "replaces": "tf_depth_estimation_tpu/ops/pallas_tail.py:112",
-        "launches": launches["fused_tail"], "max_abs_err": errs[torch.bfloat16],
+        "launches": serving["fused_tail"], "max_abs_err": errs[torch.bfloat16],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the same function
+    }, {
+        "name": "bilinear_sample", "route": "cuda",
+        "source": "tf_depth_estimation_torch/csrc/bilinear_sample.cu",
+        "replaces": "tf_depth_estimation_tpu/ops/pallas_sample.py:97",
+        "launches": training["bilinear_sample"], "max_abs_err": sample_errs["out"],
+        "ms": srow["ms"], "plain_ms": srow["plain_ms"], "bound_ms": srow["bound_ms"],
+        "bound_by": srow["bound_by"],
+        # grid_sample(bilinear, zeros, align_corners=True): the closest library call, not
+        # the same function (normalised coordinates, no wmask)
+        "library_ms": srow["library_ms"],
     }]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {info['smi']}")

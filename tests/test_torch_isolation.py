@@ -1,5 +1,6 @@
 """The port and chip_smoke.py run without JAX, Flax, orbax or the JAX package: the GPU
-machine has none of them."""
+machine has none of them. The child imports every port module, serves, and runs one CPU
+training step of config 4 through the CLI."""
 import os
 import pkgutil
 import re
@@ -18,12 +19,19 @@ for name in %(forbidden)r:
 import tf_depth_estimation_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
+import tempfile
 import chip_smoke
+from tf_depth_estimation_torch.ops.bilinear_sample import bilinear_sample
 from tf_depth_estimation_torch.utils.npz import load_variables_npz
 variables, _ = load_variables_npz(chip_smoke.TEACHER)
 fwd = chip_smoke.phase_forward(variables, "cpu", height=64, width=96, batch=2)
 served = chip_smoke.phase_serving(variables, "cpu", height=64, width=96, batch=8)
 assert fwd["launches"] == 0 and served["frames"] == 14, (fwd, served)
+with tempfile.TemporaryDirectory() as tmp:
+    dataset = chip_smoke.write_dataset(tmp, batch=2, read_hw=(48, 96))
+    trained = chip_smoke.phase_training("cpu", dataset, height=32, width=64,
+                                        read_hw=(48, 96), batch=2, steps=1, dtype="float32")
+assert trained["steps"] == 1 and bilinear_sample.launches == 0, trained
 print("ISOLATED_OK")
 """
 
@@ -49,7 +57,11 @@ def test_every_port_module_is_imported_by_the_child():
                                                    "tf_depth_estimation_torch.")}
     assert {"tf_depth_estimation_torch.ops.fused_tail",
             "tf_depth_estimation_torch.infer.cli",
-            "tf_depth_estimation_torch.weights"} <= names
+            "tf_depth_estimation_torch.weights",
+            "tf_depth_estimation_torch.ops.bilinear_sample",
+            "tf_depth_estimation_torch.geometry.warp",
+            "tf_depth_estimation_torch.train.steps",
+            "tf_depth_estimation_torch.train.experiments.optflow_combine"} <= names
 
 
 def test_no_port_file_names_jax_in_an_import():

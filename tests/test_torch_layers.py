@@ -102,5 +102,69 @@ def test_eval_bn_matches_flax_batchnorm():
 
 
 def test_train_mode_bn_is_refused():
-    with pytest.raises(NotImplementedError):
-        layers.SlimBatchNorm(3).train()(torch.zeros(1, 3, 2, 2))
+    """Train-mode batch norm refuses an empty batch, whose statistics would write NaN
+    into the running mean and variance."""
+    with pytest.raises(ValueError):
+        layers.SlimBatchNorm(3).train()(torch.zeros(0, 3, 2, 2))
+
+
+@pytest.mark.parametrize("momentum", [0.99, 0.999])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_bn_matches_flax_batchnorm(momentum, dtype):
+    """Batch statistics (biased "fast" variance in float32), the output in the input's
+    dtype, and the running statistics after one forward, ``m * r + (1 - m) * batch``."""
+    x = _rand((4, 5, 6, 7), 9) * 3.0 + 1.5
+    rng = np.random.RandomState(10)
+    mean, var, bias = (rng.randn(7).astype(np.float32), rng.rand(7).astype(np.float32) + .5,
+                       rng.randn(7).astype(np.float32))
+    jdt = getattr(jnp, dtype)
+    bn = fnn.BatchNorm(use_running_average=False, momentum=momentum, epsilon=1e-3,
+                       use_scale=False, dtype=jdt)
+    ref, mut = bn.apply({"params": {"bias": bias},
+                         "batch_stats": {"mean": mean, "var": var}},
+                        jnp.asarray(x).astype(jdt), mutable=["batch_stats"])
+    port = layers.SlimBatchNorm(7, momentum).train()
+    with torch.no_grad():
+        port.bias.copy_(torch.from_numpy(bias))
+        port.running_mean.copy_(torch.from_numpy(mean))
+        port.running_var.copy_(torch.from_numpy(var))
+    got = port(_nchw(x).to(getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype)
+    # bf16: the same float32 value rounded once to bf16, unless the two float32 results
+    # straddle a rounding boundary (one bf16 step, 2^-8 relative)
+    tol = TOL if dtype == "float32" else dict(rtol=8e-3, atol=8e-3)
+    np.testing.assert_allclose(got.detach().float().permute(0, 2, 3, 1).numpy(),
+                               np.asarray(ref.astype(jnp.float32)), **tol)
+    stats = mut["batch_stats"]
+    np.testing.assert_allclose(port.running_mean.numpy(), np.asarray(stats["mean"]),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(port.running_var.numpy(), np.asarray(stats["var"]),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_glorot_init_uses_flax_fans():
+    """Each kernel of the port's init is uniform within the bound that flax's
+    glorot_uniform gives the JAX variable of the same layer: sqrt(6 / (fan_in +
+    fan_out)), with the fans of [k, k, in, out] (conv) or [k, k, out, in] (TF deconv)."""
+    from tf_depth_estimation_tpu.models import DispNet as JDispNet
+    from tf_depth_estimation_tpu.models import DispNetVariant as JVariant
+    from tf_depth_estimation_torch.models import DispNet, DispNetVariant
+
+    variables = JDispNet(JVariant.depth10_flow()).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 32, 64, 3)), train=False)
+    net = DispNet(DispNetVariant.depth10_flow(), generator=torch.Generator().manual_seed(0))
+    sd = net.state_dict()
+    n = 0
+    for path, leaf in jax.tree_util.tree_flatten_with_path(variables["params"])[0]:
+        keys = [p.key for p in path]
+        if keys[-1] != "kernel":
+            continue
+        k = np.asarray(leaf)
+        bound = (6.0 / ((k.shape[2] + k.shape[3]) * k.shape[0] * k.shape[1])) ** 0.5
+        name = f"{keys[0]}.{keys[1]}" + ("" if keys[1].startswith("disp") else ".conv")
+        w = sd[f"{name}.weight"]
+        assert w.shape == torch.Size(np.transpose(k, (3, 2, 0, 1)).shape), name
+        for got in (w.abs().max().item(), float(np.abs(k).max())):
+            assert 0.9 * bound < got <= bound * (1 + 1e-6), (name, got, bound)
+        n += 1
+    assert n == 14 + 2 * (7 + 7 + 4)   # encoder; each decoder's deconvs, iconvs, heads

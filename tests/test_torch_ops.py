@@ -73,3 +73,30 @@ def test_space_to_depth_and_back(shape):
     y = _img((shape[0], shape[1] // 2, shape[2] // 2, 4 * shape[3]), seed=2)
     np.testing.assert_array_equal(phase.depth_to_space(torch.from_numpy(y)).numpy(),
                                   np.asarray(jphase.depth_to_space(y)))
+
+
+AREA = [((8, 12), (4, 6)), ((8, 12), (2, 3)), ((9, 13), (4, 5)), ((7, 5), (3, 2)),
+        ((6, 10), (6, 10)), ((5, 7), (8, 9))]
+
+
+@pytest.mark.parametrize("src,dst", AREA)
+def test_resize_area_matches_jax(src, dst):
+    """Integer factors take the average pool, other ratios the TF1 area weights."""
+    x = _img((2, *src, 3), seed=3)
+    ref = np.asarray(jresize.resize_area(jnp.asarray(x), dst))
+    np.testing.assert_allclose(_port(resize.resize_area, x, dst), ref, **TOL)
+
+
+@pytest.mark.parametrize("src,dst", [((5, 7), (10, 14)), ((5, 7), (9, 13)),
+                                     ((12, 16), (5, 7))])
+def test_resize_bilinear_gradient_matches_jax(src, dst):
+    """The decoder differentiates its disparity upsamples: the gradient of <resize(x), g>
+    against jax.grad, on the x2 stencil and on the weight-matrix path."""
+    import jax
+
+    x, g = _img((2, *src, 3), seed=4), _img((2, *dst, 3), seed=5)
+    ref = jax.grad(lambda a: jnp.sum(jresize.resize_bilinear(a, dst) * g))(jnp.asarray(x))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_(True)
+    (resize.resize_bilinear(xt, dst) * torch.from_numpy(g).permute(0, 3, 1, 2)).sum().backward()
+    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-5)

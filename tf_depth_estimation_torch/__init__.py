@@ -1,8 +1,11 @@
 """PyTorch / CUDA port of tf_depth_estimation_tpu for NVIDIA Hopper GPUs.
 
-The JAX package beside it is the reference; this package imports neither JAX nor it. The
-first slice serves depth4 DispNet: ``infer.DepthPredictor`` and ``infer.fast_depth_forward``
-over ``models.DispNet``, with the decoder tail as the CUDA kernel ``csrc/fused_tail.cu``.
+The JAX package beside it is the reference; this package imports neither JAX nor it. It
+serves depth4 DispNet (``infer.DepthPredictor`` and ``infer.fast_depth_forward`` over
+``models.DispNet``, with the decoder tail as the CUDA kernel ``csrc/fused_tail.cu``) and
+trains BASELINE config 4, depth10_flow DispNet on joint depth and optical flow
+(``train.experiments.optflow_combine``, with the warps' bilinear sampler as the CUDA kernel
+``csrc/bilinear_sample.cu``).
 """
 from tf_depth_estimation_torch.infer import DepthPredictor, fast_depth_forward
 from tf_depth_estimation_torch.models import DispNet, DispNetVariant

@@ -1,0 +1,118 @@
+"""Threaded host batching and the copy to the device.
+
+``BatchLoader`` is the port of ``tf_depth_estimation_tpu/data/pipeline.py:BatchLoader``
+(shuffled epochs, fixed batch size, remainder dropped, worker threads). ``device_prefetch``
+replaces the JAX package's ``jax.device_put`` double buffer: each batch is copied into
+pinned host memory and sent with a non-blocking copy on the current stream, ``size``
+batches ahead of the consumer, so the next batch's copy overlaps the current step.
+"""
+from __future__ import annotations
+
+import collections
+import queue
+import threading
+from typing import Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+class BatchLoader:
+    """Shuffled, epoch-repeating batch iterator over an indexable dataset of dicts of
+    fixed-shape numpy arrays; with more than one worker the batches' order may vary."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
+                 num_epochs: Optional[int] = None, num_workers: int = 2,
+                 queue_depth: int = 4):
+        if len(dataset) == 0:
+            raise ValueError("empty dataset")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_epochs = num_epochs
+        self.rng = np.random.RandomState(seed)
+        self.num_workers = num_workers
+        self.queue_depth = queue_depth
+
+    def _index_stream(self) -> Iterator[int]:
+        epoch = 0
+        n = len(self.dataset)
+        while self.num_epochs is None or epoch < self.num_epochs:
+            idx = np.arange(n)
+            if self.shuffle:
+                self.rng.shuffle(idx)
+            yield from idx
+            epoch += 1
+
+    @staticmethod
+    def _collate(samples: Sequence[dict]) -> dict:
+        return {k: np.stack([s[k] for s in samples], axis=0) for k in samples[0]}
+
+    def __iter__(self) -> Iterator[dict]:
+        idx_stream = self._index_stream()
+        idx_lock = threading.Lock()
+        out_q: queue.Queue = queue.Queue(maxsize=self.queue_depth)
+        stop = threading.Event()
+
+        def producer():
+            try:
+                while not stop.is_set():
+                    batch_idx = []
+                    with idx_lock:
+                        for _ in range(self.batch_size):
+                            i = next(idx_stream, None)
+                            if i is None:
+                                return
+                            batch_idx.append(i)
+                    out_q.put(self._collate([self.dataset[i] for i in batch_idx]))
+            except BaseException as e:  # hand it to the consumer instead of hanging it
+                out_q.put(e)
+            finally:
+                out_q.put(None)
+
+        workers = [threading.Thread(target=producer, daemon=True)
+                   for _ in range(self.num_workers)]
+        for t in workers:
+            t.start()
+        finished = 0
+        try:
+            while finished < self.num_workers:
+                item = out_q.get()
+                if item is None:
+                    finished += 1
+                elif isinstance(item, BaseException):
+                    raise RuntimeError("BatchLoader worker failed") from item
+                else:
+                    yield item
+        finally:
+            stop.set()
+            while any(t.is_alive() for t in workers):  # unblock producers stuck on put()
+                try:
+                    out_q.get_nowait()
+                except queue.Empty:
+                    pass
+                for t in workers:
+                    t.join(timeout=0.01)
+
+
+def to_device(batch: dict, device) -> dict:
+    """numpy batch -> tensors on ``device``; to a GPU through pinned memory, without
+    blocking the host."""
+    device = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = (t.pin_memory().to(device, non_blocking=True) if device.type == "cuda"
+                  else t.to(device))
+    return out
+
+
+def device_prefetch(batches: Iterator[dict], device, size: int = 2) -> Iterator[dict]:
+    """Keep ``size`` batches in flight to ``device`` (double buffering by default)."""
+    buf = collections.deque()
+    for b in batches:
+        buf.append(to_device(b, device))
+        if len(buf) >= size:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()

@@ -1,0 +1,68 @@
+"""Differentiable warps: projective inverse warp, flow warp, flow from coordinates.
+
+The port of ``tf_depth_estimation_tpu/geometry/warp.py`` (ref ``utils_lr.py:222-274,
+472-489``) for ``fmt="matrix"``; the Euler and angle-axis pose formats need
+``geometry/pose.py`` and ``rotations.py``, which come with the pairwise slice. Images and
+flows are NHWC, as in the JAX package.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from tf_depth_estimation_torch.geometry.camera import (
+    cam_to_pixel,
+    matmul_f32,
+    pad_intrinsics_4x4,
+    pixel_grid,
+    pixel_to_cam,
+)
+from tf_depth_estimation_torch.geometry.sampling import bilinear_sample
+
+
+class WarpResult(NamedTuple):
+    image: torch.Tensor         # [B, H, W, C] source warped into the target frame
+    coords: torch.Tensor        # [B, H, W, 2] source-pixel coordinates
+    mask: torch.Tensor          # [B, H, W, 1] bilinear validity weight (wmask)
+    warped_depth: torch.Tensor  # [B, H, W, 1] z of the projected points
+    pose: torch.Tensor          # [B, 4, 4] the pose matrix
+
+
+def projective_inverse_warp(img: torch.Tensor, depth: torch.Tensor, pose: torch.Tensor,
+                            intrinsics: torch.Tensor, fmt: str = "euler",
+                            sampler: str = "xla") -> WarpResult:
+    """Inverse-warp ``img`` [B, H, W, C] (source view) into the target frame given the
+    target ``depth`` [B, H, W], ``pose`` [B, 4, 4] and ``intrinsics`` [B, 3, 3]."""
+    if fmt in ("euler", "eular", "angleaxis"):
+        raise NotImplementedError(
+            f"pose format {fmt!r} needs geometry/pose.py, which the port brings with the "
+            "pairwise (depth_then_cam) slice; this slice warps with fmt='matrix'")
+    if fmt != "matrix":
+        raise ValueError(f"unknown pose format: {fmt}")
+    cam_coords = pixel_to_cam(depth, intrinsics)
+    proj = matmul_f32(pad_intrinsics_4x4(intrinsics), pose)
+    coords, warped_depth = cam_to_pixel(cam_coords, proj)
+    out, wmask = bilinear_sample(img, coords, sampler=sampler)
+    return WarpResult(out, coords, wmask, warped_depth, pose)
+
+
+def flow_warp(img: torch.Tensor, flow_x: torch.Tensor, flow_y: torch.Tensor,
+              sampler: str = "xla") -> torch.Tensor:
+    """Sample ``img`` at the identity grid plus the flow (``flow_x/flow_y``
+    [B, H, W, 1])."""
+    _, H, W, _ = img.shape
+    grid = pixel_grid(H, W, homogeneous=False, device=img.device)
+    coords = torch.stack([grid[0][None] + flow_x[..., 0], grid[1][None] + flow_y[..., 0]],
+                         -1)
+    out, _ = bilinear_sample(img, coords, sampler=sampler)
+    return out
+
+
+def flow_from_coords(src_coords: torch.Tensor):
+    """Source-pixel coordinates [B, H, W, 2] -> optical flow with respect to the identity
+    grid, (flow_x, flow_y), each [B, H, W, 1]."""
+    _, H, W, _ = src_coords.shape
+    grid = pixel_grid(H, W, homogeneous=False, device=src_coords.device)
+    return (src_coords[..., 0:1] - grid[0][None, ..., None],
+            src_coords[..., 1:2] - grid[1][None, ..., None])

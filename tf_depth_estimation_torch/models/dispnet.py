@@ -1,10 +1,12 @@
-"""DispNet encoder-decoder, depth4 variant, as an ``nn.Module`` (NCHW inside).
+"""DispNet encoder-decoder as an ``nn.Module`` (NCHW inside), depth4 and depth10_flow.
 
 Mirrors ``tf_depth_estimation_tpu/models/dispnet.py``: 7 stride-2 encoder stages, each
 followed by a stride-1 'b' conv (kernels 7, 5, then 3), and a skip-connected deconv decoder
-whose sigmoid disparity heads at 1/8..1 resolution feed back through a TF1 bilinear
-upsample. This is the plain eval forward, the parity anchor of ``infer/fast.py``. Only the
-depth4 variant (``nets_optflow_depth.py``) is ported; the others come with later slices.
+whose disparity heads at 1/8..1 resolution feed back through a TF1 bilinear upsample. The
+depth10_flow variant (``nets_depth.py``) adds a second decoder, ``flow_decoder``, whose
+layers carry the suffix ``_opt`` and whose heads are 2-channel and linear. It runs in
+train mode (batch statistics) and eval mode (running statistics). The sfm and depth4_nobn
+variants come with later slices.
 """
 from __future__ import annotations
 
@@ -25,62 +27,89 @@ class DispNetVariant:
     name: str
     disp_scaling: float = 4.0
     min_disp: float = 0.0
+    bn_momentum: float = 0.99
+    flow_decoder: bool = False
 
     @staticmethod
     def depth4() -> "DispNetVariant":
-        """nets_optflow_depth.py: sigmoid*4 heads (BASELINE configs 1/2)."""
-        return DispNetVariant("depth4", disp_scaling=4.0, min_disp=0.0)
+        """nets_optflow_depth.py: sigmoid*4 heads, bn decay 0.99 (BASELINE configs 1/2)."""
+        return DispNetVariant("depth4", disp_scaling=4.0, min_disp=0.0, bn_momentum=0.99)
+
+    @staticmethod
+    def depth10_flow() -> "DispNetVariant":
+        """nets_depth.py: sigmoid*10 + 0.001 depth heads, bn decay 0.999, and a parallel
+        flow decoder (BASELINE config 4)."""
+        return DispNetVariant("depth10_flow", disp_scaling=10.0, min_disp=0.001,
+                              bn_momentum=0.999, flow_decoder=True)
 
 
 ENC = ((32, 7), (64, 5), (128, 3), (256, 3), (512, 3), (512, 3), (512, 3))
-# decoder level -> (deconv out, iconv in = deconv out + skip (+ 1 fed-back disparity))
-DEC = {7: (512, 1024), 6: (512, 1024), 5: (256, 512), 4: (128, 256),
-       3: (64, 129), 2: (32, 65), 1: (16, 17)}
+# decoder level -> (deconv out, skip channels); levels 3..1 also take the fed-back head
+DEC = {7: (512, 512), 6: (512, 512), 5: (256, 256), 4: (128, 128), 3: (64, 64),
+       2: (32, 32), 1: (16, 0)}
+
+
+def _decoder(bn_momentum: float, head_channels: int, suffix: str,
+             generator: Optional[torch.Generator]) -> nn.ModuleDict:
+    dec = nn.ModuleDict()
+    cin = ENC[-1][0]
+    for lvl in range(7, 0, -1):
+        out, skip = DEC[lvl]
+        cat_in = out + skip + (head_channels if lvl <= 3 else 0)
+        dec[f"upcnv{lvl}{suffix}"] = SlimConv(cin, out, 3, 2, transpose=True,
+                                              generator=generator, bn_momentum=bn_momentum)
+        dec[f"icnv{lvl}{suffix}"] = SlimConv(cat_in, out, 3, 1, generator=generator,
+                                             bn_momentum=bn_momentum)
+        if lvl <= 4:
+            dec[f"disp{lvl}{suffix}"] = TFConv2d(out, head_channels, 3, bias=True,
+                                                 generator=generator)
+        cin = out
+    return dec
 
 
 class DispNet(nn.Module):
-    """depth4 DispNet; ``forward`` returns ``[d1, d2, d3, d4]`` as float32 NCHW."""
+    """``forward`` returns ``[d1, d2, d3, d4]`` (and for depth10_flow ``+ [f1, f2, f3,
+    f4]``, 2-channel flows), float32 NCHW, full resolution first.
+
+    ``dtype`` is the compute dtype: the image and every layer's weights are cast to it,
+    the parameters stay float32, the batch-norm statistics are float32 and the heads are
+    cast to float32, as the JAX module does with ``DispNet(dtype=bfloat16)``.
+    """
 
     def __init__(self, variant: Optional[DispNetVariant] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.variant = variant or DispNetVariant.depth4()
-        g = generator
+        self.dtype = dtype
+        g, m = generator, self.variant.bn_momentum
         self.encoder = nn.ModuleDict()
         cin = 3
         for i, (feat, k) in enumerate(ENC, start=1):
-            self.encoder[f"cnv{i}"] = SlimConv(cin, feat, k, 2, generator=g)
-            self.encoder[f"cnv{i}b"] = SlimConv(feat, feat, k, 1, generator=g)
+            self.encoder[f"cnv{i}"] = SlimConv(cin, feat, k, 2, generator=g, bn_momentum=m)
+            self.encoder[f"cnv{i}b"] = SlimConv(feat, feat, k, 1, generator=g,
+                                                bn_momentum=m)
             cin = feat
-        self.decoder = nn.ModuleDict()
-        for lvl in range(7, 0, -1):
-            out, cat_in = DEC[lvl]
-            self.decoder[f"upcnv{lvl}"] = SlimConv(cin, out, 3, 2, transpose=True,
-                                                   generator=g)
-            self.decoder[f"icnv{lvl}"] = SlimConv(cat_in, out, 3, 1, generator=g)
-            if lvl <= 4:
-                self.decoder[f"disp{lvl}"] = TFConv2d(out, 1, 3, bias=True, generator=g)
-            cin = out
+        self.decoder = _decoder(m, 1, "", g)
+        if self.variant.flow_decoder:
+            self.flow_decoder = _decoder(m, 2, "_opt", g)
 
-    def forward(self, image: torch.Tensor) -> List[torch.Tensor]:
-        """image: [B, 3, H, W] in the parameters' dtype."""
-        v, dec = self.variant, self.decoder
-        H, W = image.shape[-2:]
-        x = image
-        skips = []
-        for i in range(1, 8):
-            x = self.encoder[f"cnv{i}b"](self.encoder[f"cnv{i}"](x))
-            skips.append(x)
+    def _decode(self, dec: nn.ModuleDict, sfx: str, skips, hw, scale: float,
+                offset: float, sigmoid: bool) -> List[torch.Tensor]:
+        H, W = hw
+        dtype = skips[0].dtype
 
         def head(x, lvl):
-            y = torch.sigmoid(dec[f"disp{lvl}"](x))
-            return (v.disp_scaling * y + v.min_disp).float()
+            y = dec[f"disp{lvl}{sfx}"](x)
+            if sigmoid:
+                y = torch.sigmoid(y)
+            return (scale * y + offset).float()
 
         def up_cat(x, lvl, extra):  # deconv, patch odd sizes, concat, iconv
-            x = resize_like(dec[f"upcnv{lvl}"](x), extra[0])
-            return dec[f"icnv{lvl}"](torch.cat([x, *extra], 1))
+            x = resize_like(dec[f"upcnv{lvl}{sfx}"](x), extra[0])
+            return dec[f"icnv{lvl}{sfx}"](torch.cat([x, *extra], 1))
 
-        up = lambda d, f: resize_bilinear(d, (H // f, W // f)).to(image.dtype)
+        up = lambda d, f: resize_bilinear(d, (H // f, W // f)).to(dtype)
         x = skips[6]
         for lvl in (7, 6, 5, 4):
             x = up_cat(x, lvl, [skips[lvl - 2]])
@@ -91,3 +120,19 @@ class DispNet(nn.Module):
         d2 = head(x, 2)
         x = up_cat(x, 1, [up(d2, 1)])
         return [head(x, 1), d2, d3, d4]
+
+    def forward(self, image: torch.Tensor) -> List[torch.Tensor]:
+        """image: [B, 3, H, W], any float dtype; it is cast to the compute dtype."""
+        v = self.variant
+        hw = image.shape[-2:]
+        x = image.to(self.dtype)
+        skips = []
+        for i in range(1, 8):
+            x = self.encoder[f"cnv{i}b"](self.encoder[f"cnv{i}"](x))
+            skips.append(x)
+        disps = self._decode(self.decoder, "", skips, hw, v.disp_scaling, v.min_disp,
+                             sigmoid=True)
+        if not v.flow_decoder:
+            return disps
+        return disps + self._decode(self.flow_decoder, "_opt", skips, hw, 1.0, 0.0,
+                                    sigmoid=False)

@@ -12,6 +12,9 @@ differ from PyTorch's own layers and are written out here:
   TF SAME conv; as ``conv_transpose2d`` it has no padding and the trailing
   ``kernel - stride`` rows and columns cropped. Its kernel needs no flip, only the axes
   permuted to ``[in, out, kh, kw]``.
+
+Parameters stay float32; a layer computes in its input's dtype and casts its weights to
+it, as flax does with ``dtype=bfloat16`` and ``param_dtype=float32``.
 """
 from __future__ import annotations
 
@@ -65,7 +68,8 @@ class TFConv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
-        return conv2d_same(x, self.weight, self.bias, self.stride)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return conv2d_same(x, self.weight.to(x.dtype), bias, self.stride)
 
 
 class TFConvTranspose(nn.Module):
@@ -80,7 +84,7 @@ class TFConvTranspose(nn.Module):
             _glorot((cin, cout, k, k), cout * k * k, cin * k * k, generator))
 
     def forward(self, x):
-        return conv_transpose2d_same(x, self.weight, None, self.stride)
+        return conv_transpose2d_same(x, self.weight.to(x.dtype), None, self.stride)
 
 
 def bn_affine(bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor):
@@ -90,15 +94,20 @@ def bn_affine(bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor):
 
 
 class SlimBatchNorm(nn.Module):
-    """Eval-mode slim batch norm: ``(x - mean) * rsqrt(var + 1e-3) + bias``, no scale.
+    """slim batch norm with flax's arithmetic: epsilon 1e-3, a bias and no scale.
 
-    Train-mode statistics (flax's biased variance, decay 0.99) come with the training
-    slice; until then a module in train mode raises rather than silently using the
-    running statistics.
+    Eval: ``(x - mean) * rsqrt(var + 1e-3) + bias`` with the running statistics.
+    Train: the batch statistics over (N, H, W) in float32, ``var = max(E[x^2] - E[x]^2,
+    0)`` (flax's biased "fast" variance), the normalisation in float32 and the result cast
+    back to the input's dtype; the running statistics move as flax moves them,
+    ``r = m * r + (1 - m) * batch`` with ``m`` the decay (``momentum``: 0.99 for depth4,
+    0.999 for depth10_flow). ``nn.BatchNorm2d`` would update with the unbiased variance,
+    and its ``momentum`` is ``1 - m``.
     """
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, momentum: float = 0.99):
         super().__init__()
+        self.momentum = momentum
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
@@ -108,21 +117,34 @@ class SlimBatchNorm(nn.Module):
         return bn_affine(self.bias, self.running_mean, self.running_var)
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError("train-mode batch norm is not ported yet")
-        s, t = self.affine()
-        return x * s.to(x.dtype)[:, None, None] + t.to(x.dtype)[:, None, None]
+        if not self.training:
+            s, t = self.affine()
+            return x * s.to(x.dtype)[:, None, None] + t.to(x.dtype)[:, None, None]
+        if x.numel() == 0:   # an empty batch would write NaN into the running statistics
+            raise ValueError(f"train-mode batch norm needs a non-empty batch, got "
+                             f"{tuple(x.shape)}")
+        xf = x.float()
+        mean = xf.mean((0, 2, 3))
+        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+        y = (xf - mean[:, None, None]) * torch.rsqrt(var + BN_EPS)[:, None, None]
+        y = y + self.bias[:, None, None]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return y.to(x.dtype)
 
 
 class SlimConv(nn.Module):
     """conv (or TF transposed conv) -> slim batch norm -> ReLU."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 transpose: bool = False, generator: Optional[torch.Generator] = None):
+                 transpose: bool = False, generator: Optional[torch.Generator] = None,
+                 bn_momentum: float = 0.99):
         super().__init__()
         self.conv = (TFConvTranspose(cin, cout, k, stride, generator) if transpose
                      else TFConv2d(cin, cout, k, stride, generator=generator))
-        self.bn = SlimBatchNorm(cout)
+        self.bn = SlimBatchNorm(cout, bn_momentum)
 
     def forward(self, x):
         return torch.relu(self.bn(self.conv(x)))

@@ -1,4 +1,4 @@
-"""TF1-legacy image resizes on NCHW tensors.
+"""TF1-legacy image resizes on NCHW tensors: bilinear, area, nearest.
 
 The reference uses TF1's legacy resize semantics (align_corners=False and no half-pixel
 centres: ``src = dst * in/out``). ``F.interpolate`` uses half-pixel centres and does not
@@ -29,6 +29,24 @@ def _bilinear_weights(in_size: int, out_size: int) -> np.ndarray:
         hi = min(lo + 1, in_size - 1)
         W[i, lo] += 1.0 - frac
         W[i, hi] += frac
+    return W
+
+
+@lru_cache(maxsize=None)
+def _area_weights(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] TF1 ``resize_area`` weights: mean over [i*s, (i+1)*s) with fractional
+    edge coverage, normalized by the box size."""
+    W = np.zeros((out_size, in_size), dtype=np.float32)
+    scale = in_size / out_size
+    for i in range(out_size):
+        left = i * scale
+        right = (i + 1) * scale
+        lo = int(np.floor(left))
+        hi = int(np.ceil(right))
+        for j in range(lo, hi):
+            cover = min(right, j + 1) - max(left, j)
+            W[i, min(j, in_size - 1)] += cover
+        W[i] /= scale
     return W
 
 
@@ -71,6 +89,19 @@ def resize_bilinear(img: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     if (out_h, out_w) == (2 * H, 2 * W):
         return _up2_bilinear(_up2_bilinear(img, -2), -1)
     return _resize(img, size, _bilinear_weights)
+
+
+def resize_area(img: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """TF1 ``resize_area``. img: [B, C, H, W]. An integer downscale factor is an exact
+    average pool (reshape and mean, as the JAX function takes it); other ratios take the
+    separable area weights."""
+    B, C, H, W = img.shape
+    out_h, out_w = int(size[0]), int(size[1])
+    if (H, W) == (out_h, out_w):
+        return img
+    if out_h and out_w and H % out_h == 0 and W % out_w == 0:
+        return img.reshape(B, C, out_h, H // out_h, out_w, W // out_w).mean((3, 5))
+    return _resize(img, size, _area_weights)
 
 
 def resize_nearest(img: torch.Tensor, size: Sequence[int]) -> torch.Tensor:

@@ -1,0 +1,65 @@
+"""Checkpoints of the PyTorch port: flat ``.npz`` weights plus the optimizer state.
+
+``CheckpointManager(directory).save(step, state)`` writes ``model-<step>.npz``, the
+``{params, batch_stats}`` tree in the serving format of ``utils/npz.py`` (which the JAX
+package's ``load_variables_npz`` reads), and ``model-<step>.opt.pt``, Adam's state for
+``--continue_train``. The newest ten steps are kept, as the JAX package's manager keeps. The JAX package's orbax
+directories are not ported.
+"""
+from __future__ import annotations
+
+import glob
+import os
+import re
+from typing import List, Optional
+
+import torch
+
+from tf_depth_estimation_torch.train.state import TrainState
+from tf_depth_estimation_torch.utils.npz import load_variables_npz, save_variables_npz
+
+
+MAX_TO_KEEP = 10
+
+
+class CheckpointManager:
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def weights_path(self, step: int) -> str:
+        return os.path.join(self.directory, f"model-{step}.npz")
+
+    def steps(self) -> List[int]:
+        found = (re.fullmatch(r"model-(\d+)\.npz", os.path.basename(p))
+                 for p in glob.glob(os.path.join(self.directory, "model-*.npz")))
+        return sorted(int(m.group(1)) for m in found if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: TrainState) -> str:
+        """Write step ``step``; returns the ``.npz`` path."""
+        path = self.weights_path(step)
+        torch.save({"step": step, "optimizer": state.optimizer.state_dict()},
+                   path[:-len(".npz")] + ".opt.pt")
+        save_variables_npz(path, state.variables(), step=step)
+        for old in self.steps()[:-MAX_TO_KEEP]:
+            for p in (self.weights_path(old), self.weights_path(old)[:-4] + ".opt.pt"):
+                if os.path.exists(p):
+                    os.remove(p)
+        return path
+
+    def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
+        """Load step ``step`` (default: the newest) into ``state``."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        variables, _ = load_variables_npz(self.weights_path(step))
+        state.load_variables(variables)
+        opt = torch.load(self.weights_path(step)[:-4] + ".opt.pt",
+                         map_location=next(state.model.parameters()).device)
+        state.optimizer.load_state_dict(opt["optimizer"])
+        state.step = int(opt["step"])
+        return state

@@ -1,0 +1,69 @@
+"""Shared plumbing for the experiment CLIs of the PyTorch port."""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from tf_depth_estimation_torch.data.pipeline import BatchLoader, device_prefetch
+from tf_depth_estimation_torch.train.checkpoint import CheckpointManager
+from tf_depth_estimation_torch.train.loop import MetricLogger
+
+# flags of the JAX CLIs that later slices bring; the port refuses them rather than
+# ignoring them
+NOT_PORTED = {
+    "native_loader": "the C++ loader (native/) is bound by a later slice",
+    "demon_v1": "the DeMoN v1 reader comes with the DeMoN slice",
+    "tensorboard": "TensorBoard summaries are not ported; metrics go to metrics.jsonl",
+    "rich_summaries": "image and histogram summaries are not ported",
+}
+
+
+def base_parser(description: str, batch_size: int, max_steps: int) -> argparse.ArgumentParser:
+    """The flags of ``tf_depth_estimation_tpu/train/experiments/common.py`` that the
+    ported paths use, plus ``--device``."""
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--dataset_dir", default="")
+    p.add_argument("--checkpoint_dir", default="./checkpoints")
+    p.add_argument("--learning_rate", type=float, default=2e-4)
+    p.add_argument("--beta1", type=float, default=0.9)
+    p.add_argument("--batch_size", type=int, default=batch_size)
+    p.add_argument("--max_steps", type=int, default=max_steps)
+    p.add_argument("--save_latest_freq", type=int, default=1000)
+    p.add_argument("--summary_freq", type=int, default=100)
+    p.add_argument("--continue_train", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--num_epochs", type=int, default=1500)
+    p.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
+    for flag, why in NOT_PORTED.items():
+        p.add_argument(f"--{flag}", action="store_true", help=f"not ported: {why}")
+    return p
+
+
+def parse(p: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
+    args = p.parse_args(argv)
+    for flag, why in NOT_PORTED.items():
+        if getattr(args, flag):
+            p.error(f"--{flag} is not ported to tf_depth_estimation_torch yet: {why}")
+    return args
+
+
+def compute_dtype(args) -> torch.dtype:
+    return torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+
+
+def pair_loader(args, ds, batch_size: int):
+    """Shuffled colon pair-dataset batches on ``args.device``, two in flight."""
+    loader = BatchLoader(ds, batch_size, seed=args.seed, num_epochs=args.num_epochs)
+    return device_prefetch(iter(loader), args.device)
+
+
+def setup_run(args, state):
+    """Checkpoint manager + logger, and the resume of ``--continue_train``."""
+    mgr = CheckpointManager(args.checkpoint_dir)
+    logger = MetricLogger(args.checkpoint_dir)
+    if args.continue_train and mgr.latest_step() is not None:
+        state = mgr.restore(state)
+        print(f"resumed from step {state.step}")
+    return mgr, logger, state

@@ -1,0 +1,44 @@
+"""Train-step factories of the PyTorch port (``tf_depth_estimation_tpu/train/steps.py``).
+
+A step runs the forward in train mode (which moves the batch-norm running statistics),
+the loss, the backward and the Adam update, and returns ``(state, metrics)`` with the state
+updated in place and the metrics as detached 0-d tensors (reading them syncs the device).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from tf_depth_estimation_torch.losses.config import LossWeights
+from tf_depth_estimation_torch.losses.pipelines import optflow_combine_loss
+from tf_depth_estimation_torch.train.state import TrainState
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def make_optflow_combine_step(w: LossWeights):
+    """BASELINE config 4 (``train_optflow_combine.py``): depth10_flow DispNet (8 outputs:
+    4 depths, 4 flows) on the target image; ``optflow_combine_loss``. Batch keys:
+    ``tgt_image``, ``src_image`` [B, H, W, 3], ``label`` [B, H, W, 1], ``intrinsics``
+    [B, S, 3, 3], ``tgt2src_projs`` [B, 2, 4, 4]."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.train()
+        outs = state.model(batch["tgt_image"].permute(0, 3, 1, 2))
+        n = w.num_scales
+        depths = [_nhwc(d) for d in outs[:n]]
+        flows = [_nhwc(f) for f in outs[n:]]
+        total, comps = optflow_combine_loss(
+            batch["tgt_image"], batch["src_image"], depths, [f[..., 0:1] for f in flows],
+            [f[..., 1:2] for f in flows], batch["label"], batch["tgt2src_projs"][:, 0],
+            batch["intrinsics"], w)
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        state.optimizer.step()
+        state.step += 1
+        return state, {k: v.detach() for k, v in comps.items()}
+
+    return step

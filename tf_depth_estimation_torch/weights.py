@@ -2,7 +2,9 @@
 
 The JAX tree (numpy arrays from a ``.npz`` or from ``DispNet.init``) holds
 ``params/<part>/<layer>/{Conv_0,TFConvTranspose_0}/kernel``, ``.../BatchNorm_0/bias`` and
-``batch_stats/<part>/<layer>/BatchNorm_0/{mean,var}``. Conv kernels are HWIO and become
+``batch_stats/<part>/<layer>/BatchNorm_0/{mean,var}``, with the parts ``encoder``,
+``decoder`` and, for depth10_flow, ``flow_decoder`` (layers ``upcnv7_opt`` .. ``disp1_opt``);
+the state dict uses the same part and layer names. Conv kernels are HWIO and become
 OIHW. TF transposed-conv kernels are ``[kh, kw, out, in]`` and become
 ``conv_transpose2d``'s ``[in, out, kh, kw]``; both are the same axis permutation, and
 neither is flipped (``models/layers.py`` says why).
@@ -14,7 +16,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from tf_depth_estimation_torch.models.dispnet import DispNet
+from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
 
 _TO_TORCH = (3, 2, 0, 1)    # HWIO -> OIHW, and [kh, kw, out, in] -> [in, out, kh, kw]
 _TO_JAX = (2, 3, 1, 0)
@@ -65,7 +67,9 @@ def state_dict_to_variables(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 
 
 def dispnet_from_variables(variables: Dict[str, Any], *, device="cuda") -> DispNet:
-    """An eval-mode depth4 ``DispNet`` on ``device`` holding ``variables`` (strict load)."""
-    model = DispNet()
+    """An eval-mode float32 ``DispNet`` on ``device`` holding ``variables`` (strict
+    load): depth10_flow where the tree has a ``flow_decoder``, else depth4."""
+    flow = "flow_decoder" in variables["params"]
+    model = DispNet(DispNetVariant.depth10_flow() if flow else DispNetVariant.depth4())
     model.load_state_dict(variables_to_state_dict(variables), strict=True)
     return model.eval().to(device)
