@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, check and time the CUDA kernels,
-serve depth4 DispNet at 576x384 with the committed teacher weights, and train config 4
-(depth10_flow, joint depth + optical flow) at 224x480.
+serve depth4 DispNet at 576x384 with the committed teacher weights, train config 4
+(depth10_flow, joint depth + optical flow) at 224x480, and train config 2 (depth4,
+supervised depth with in-loop validation) at 240x720.
 
     python3 chip_smoke.py
 
@@ -23,19 +24,36 @@ Phases, each raising on failure:
   8. training, a main path: the config-4 CLI (``train/experiments/optflow_combine.py``,
      bf16, batch 10, 240x720 JPEG pairs read and resized to 224x480) on a synthetic
      dataset for 5 steps, with the launch counts set to 0 before and read after (12
-     ``bilinear_sample`` launches a step); every loss component finite; the checkpoint
-     read back into ``DispNet(depth10_flow)`` and its eval forward finite;
-  9. step parity: one float32 step with the kernel against one with the plain sampler
-     from one init and batch, and the bf16 step's loss against the float32 one;
+     ``bilinear_sample`` launches and 12 forward and 12 backward ``smoothness_fused``
+     launches a step); every loss component finite; the checkpoint read back into
+     ``DispNet(depth10_flow)`` and its eval forward finite;
+  9. step parity: one float32 step with the kernels against one with the plain sampler
+     and smoothness term from one init and batch, and the bf16 step's loss against the
+     float32 one;
  10. times: the sampler kernel, its plain version, ``grid_sample`` and the bound at scale
      0 and over a step's 12 calls; ms/step and frames/s of the bf16 training step with
-     the kernel and with the plain sampler.
+     the kernel and with the plain sampler;
+ 11. kernel vs plain: ``smoothness_fused`` (forward and backward) against the plain term
+     at config 2's four scales (B=10, 240x720 down to 30x90), on a strided C=1 flow plane
+     of an NCHW [B, 2, H, W] head, a constant and a piecewise-constant map (exact ties)
+     and an odd 37x53 map: the forward within rtol 1e-5 of the float32 and the float64
+     plain term, the backward within 1e-6 max|g| of autograd of the plain term, and the
+     same bits in two runs;
+ 12. training, a main path: the config-2 CLI (``train/experiments/depth_only.py``, bf16,
+     batch 10, 240x720) on the same dataset for 5 steps with ``--validation_check 2``,
+     the launch counts set to 0 before and read after (4 forward and 4 backward
+     ``smoothness_fused`` launches a step, 4 forward a validation); every train and val
+     record finite; the checkpoint read back into ``DispNet(depth4)``;
+ 13. times: the smoothness kernels, the plain term and the bound, forward and backward,
+     at config 2's scale 0 and over a step's calls in configs 2 and 4; ms/step of the
+     bf16 config-2 step with the kernels and with the plain term, in turns.
 The line before the last is one JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``. There is no CPU path: without CUDA it exits non-zero.
 TF32 is off throughout, so the float32 checks are float32 and not TF32.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -67,9 +85,15 @@ from tf_depth_estimation_torch.ops.fused_tail import (
     fused_tail,
     fused_tail_reference,
 )
-from tf_depth_estimation_torch.train.experiments import optflow_combine
+from tf_depth_estimation_torch.ops.smoothness import (
+    second_order_smoothness,
+    smoothness_backward_reference,
+    smoothness_fused,
+)
+from tf_depth_estimation_torch.train.experiments import depth_only, optflow_combine
+from tf_depth_estimation_torch.train.profile_step import plain_smoothness
 from tf_depth_estimation_torch.train.state import create_train_state
-from tf_depth_estimation_torch.train.steps import make_optflow_combine_step
+from tf_depth_estimation_torch.train.steps import make_depth_only_step, make_optflow_combine_step
 from tf_depth_estimation_torch.utils.npz import load_variables_npz
 from tf_depth_estimation_torch.weights import dispnet_from_variables
 
@@ -111,6 +135,19 @@ TOL_STEP = {"loss_rtol": 1e-5, "param_atol": 1e-6, "param_share_off": 0.01}
 # the bf16 step's first loss against the float32 one from the same init: bf16 activations
 # (2^-8 relative) through ~45 convolutions; 0.08 % on the CPU at 64x96
 TOL_BF16_LOSS = 0.02
+# config 2, the second training path (train/experiments/depth_only.py defaults): 240x720
+# pairs at their stored size, batch 10, bf16; validation every 2 steps at batch 1
+C2_HEIGHT, C2_WIDTH, C2_BATCH, C2_STEPS, C2_VAL_CHECK = 240, 720, 10, 5, 2
+# smoothness_fused launches (forward, backward): one term per depth head and scale in
+# config 2, depth and both flow channels per scale in config 4; a validation runs 4
+# forward
+SMOOTH_PER_STEP = {"depth_only": (4, 4), "optflow_combine": (12, 12)}
+SMOOTH_PER_VAL = 4
+# smoothness_fused vs the plain term: the forward sums the same terms in another order
+# (block partials, then a double sum), rtol 1e-5 as tests/test_pallas.py:69; the backward
+# adds the same sgn(term) / (B count) contributions as autograd in another order, so it
+# is within a few float32 ulp of max|g|
+TOL_SMOOTH_FWD, TOL_SMOOTH_BWD = 1e-5, 1e-6
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32, PEAK_BF16, PEAK_HBM = 67e12, 989e12, 3.35e12
 
@@ -130,7 +167,7 @@ def phase_device() -> dict:
     return info
 
 
-KERNELS = ("fused_tail", "bilinear_sample")
+KERNELS = ("fused_tail", "bilinear_sample", "smoothness")
 
 
 def phase_build() -> None:
@@ -465,16 +502,18 @@ def config4_step(sampler: str, batch: dict):
 
 
 def phase_step_parity(device, batch: dict, smi: str) -> dict:
-    """One f32 step with the kernel vs one with the plain sampler from one init and batch;
-    the bf16 step's loss against the f32 one."""
+    """One f32 step with the kernels vs one with the plain sampler and smoothness term from
+    one init and batch; the bf16 step's loss against the f32 one."""
     sd = copy.deepcopy(DispNet(DispNetVariant.depth10_flow(),
                                generator=torch.Generator().manual_seed(SEED)).state_dict())
     runs = {}
     for name, sampler, dtype in (("kernel", "pallas", torch.float32),
                                  ("plain", "xla", torch.float32),
                                  ("kernel_bf16", "pallas", torch.bfloat16)):
-        state, metrics = config4_step(sampler, batch)(config4_state(device, sd, dtype),
-                                                      batch)
+        # "plain": the plain sampler and the plain smoothness term
+        with plain_smoothness() if name == "plain" else contextlib.nullcontext():
+            state, metrics = config4_step(sampler, batch)(
+                config4_state(device, sd, dtype), batch)
         runs[name] = ({k: float(v) for k, v in metrics.items()},
                       {k: p.detach() for k, p in state.model.named_parameters()})
         print(f"step parity {name}: " + ", ".join(f"{k} {v:.6f}"
@@ -490,7 +529,7 @@ def phase_step_parity(device, batch: dict, smi: str) -> dict:
         off += int((diff > TOL_STEP["param_atol"]).sum())
         total += diff.numel()
     bf16_err = abs(lb["total"] - lp["total"]) / abs(lp["total"])
-    print(f"step parity f32, kernel vs plain sampler: loss components rel err max "
+    print(f"step parity f32, kernels vs plain sampler and smoothness: loss components rel err max "
           f"{loss_err:.2e} (tolerance {TOL_STEP['loss_rtol']:.0e}); params after Adam: max "
           f"abs diff {worst:.2e} (tolerance 2 lr = {2 * lr:.0e}), {off} of {total} "
           f"({off / total:.4%}) beyond {TOL_STEP['param_atol']:.0e} (tolerance "
@@ -570,6 +609,221 @@ def phase_training_times(device, batch: dict, smi: str) -> dict:
     return out
 
 
+def smooth_cases(device) -> dict:
+    """name -> a [B, H, W, 1] float32 map on ``device``: config 2's four scales (B=10,
+    disparities in [0, 4] as the sigmoid * 4 heads give), a strided C=1 flow plane, exact
+    ties and an odd size."""
+    g = np.random.RandomState(SEED + 6)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    cases = {f"config2 s{s}": t(g.uniform(0, 4, (C2_BATCH, C2_HEIGHT >> s, C2_WIDTH >> s, 1)))
+             for s in range(4)}
+    # config 4's flow heads: NCHW [B, 2, H, W] viewed NHWC, channel 1 (batch stride 2HW)
+    flow = t(g.randn(C4_BATCH, 2, C4_HEIGHT, C4_WIDTH))
+    cases["flow plane"] = flow.permute(0, 2, 3, 1)[..., 1:2]
+    cases["constant"] = t(np.full((C2_BATCH, 60, 180, 1), 1.5))
+    cases["piecewise"] = t(np.kron(g.randint(0, 4, (C2_BATCH, 10, 18, 1)) * 0.25,
+                                   np.ones((1, 6, 10, 1))))
+    cases["odd 37x53"] = t(g.uniform(0, 4, (C2_BATCH, 37, 53, 1)))
+    return cases
+
+
+def _smooth_grad(fn, x: torch.Tensor):
+    """(fn(x), d fn / d x) through autograd, x a view of a leaf as the step's heads are."""
+    leaf = x.detach().clone().requires_grad_(True)
+    out = fn(leaf)
+    (grad,) = torch.autograd.grad(out, leaf)
+    return out.detach(), grad
+
+
+def phase_smoothness(device, smi: str) -> dict:
+    """smoothness_fused vs the plain term: forward (float32 and float64 plain), backward
+    (autograd of the plain term, and the gather formula), and the same bits twice."""
+    worst = {"fwd": 0.0, "bwd_rel": 0.0}
+    for name, x in smooth_cases(device).items():
+        got, grad = _smooth_grad(smoothness_fused, x)
+        got2, grad2 = _smooth_grad(smoothness_fused, x)
+        ref, ref_grad = _smooth_grad(second_order_smoothness, x)
+        ref64 = second_order_smoothness(x.double())
+        gather = smoothness_backward_reference(x, torch.ones((), device=device))
+        torch.cuda.synchronize()
+        if not (torch.equal(got, got2) and torch.equal(grad, grad2)):
+            raise AssertionError(f"smoothness {name}: two runs differ")
+        err, err64 = abs(got.item() - ref.item()), abs(got.item() - ref64.item())
+        scale = ref_grad.abs().max().item()
+        gerr = (grad - ref_grad).abs().max().item()
+        gather_err = (grad - gather).abs().max().item()
+        print(f"kernel smoothness {name} {tuple(x.shape)} strides {x.stride()}: forward "
+              f"{got.item():.7f}, abs err {err:.3e} vs plain f32, {err64:.3e} vs plain f64 "
+              f"(rtol {TOL_SMOOTH_FWD:.0e}); backward abs err max {gerr:.3e} vs autograd, "
+              f"{gather_err:.3e} vs the gather formula (|g| max {scale:.3e}, tolerance "
+              f"{TOL_SMOOTH_BWD:.0e} x |g| max); two runs bit-equal [{smi}]")
+        if err > TOL_SMOOTH_FWD * abs(ref.item()) or err64 > TOL_SMOOTH_FWD * abs(
+                ref64.item()) or gerr > TOL_SMOOTH_BWD * scale \
+                or gather_err > TOL_SMOOTH_BWD * scale:
+            raise AssertionError(f"smoothness {name}: beyond its tolerances")
+        worst["fwd"] = max(worst["fwd"], err)
+        worst["bwd_rel"] = max(worst["bwd_rel"], gerr / scale if scale else 0.0)
+    return worst
+
+
+def phase_depth_only(device, dataset: str, *, height: int = C2_HEIGHT,
+                     width: int = C2_WIDTH, batch: int = C2_BATCH, steps: int = C2_STEPS,
+                     val_check: int = C2_VAL_CHECK, dtype: str = "bfloat16",
+                     smi: str = "") -> dict:
+    """The config-2 CLI for ``steps`` steps with validation every ``val_check``; every
+    train and val record finite; the checkpoint read back into depth4 DispNet."""
+    ckpt = os.path.join(os.path.dirname(dataset), "checkpoints_depth_only")
+    t0 = time.perf_counter()
+    state, _ = depth_only.main([
+        "--dataset_dir", dataset, "--checkpoint_dir", ckpt, "--batch_size", str(batch),
+        "--max_steps", str(steps), "--summary_freq", "1", "--save_latest_freq", str(steps),
+        "--validation_check", str(val_check), "--image_height", str(height),
+        "--image_width", str(width), "--dtype", dtype, "--device", str(device),
+        "--seed", str(SEED)])
+    if device != "cpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    train = [r for r in records if r["scope"] == "train"]
+    val = [r for r in records if r["scope"] == "val"]
+    finite = all(np.isfinite(r[k]) for r in train for k in ("total", "depth", "smooth")) \
+        and all(np.isfinite(r[k]) for r in val for k in ("total", "si_log_rmse", "smooth"))
+    if state.step != steps or len(train) != steps or len(val) != steps // val_check \
+            or not finite:
+        raise AssertionError(f"depth_only: step {state.step}, records {records}")
+    for r in records:
+        print(f"depth_only {r['scope']} step {r['step']}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r.items() if k not in ("step", "scope")) + f" [{smi}]")
+    variables, meta = load_variables_npz(os.path.join(ckpt, f"model-{steps}.npz"))
+    model = dispnet_from_variables(variables, device=device)
+    x = torch.from_numpy(_frames(batch, height, width)).to(device).permute(0, 3, 1, 2).float()
+    with torch.no_grad():
+        outs = model(x)
+    shapes = [(batch, 1, height >> s, width >> s) for s in range(4)]
+    if model.variant.name != "depth4" or [tuple(o.shape) for o in outs] != shapes \
+            or not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError(f"depth_only checkpoint step {meta.get('step')}: "
+                             f"{model.variant.name}, {[tuple(o.shape) for o in outs]}")
+    print(f"depth_only: {steps} steps of config 2 ({dtype}, {height}x{width}, batch {batch}) "
+          f"and {len(val)} validations through the CLI in {seconds:.1f} s host clock; every "
+          f"record finite; model-{steps}.npz read back into DispNet(depth4), eval forward "
+          f"finite [{smi}]")
+    return {"steps": steps, "validations": len(val), "seconds": seconds}
+
+
+def smooth_bound(pixels: int, backward: bool) -> tuple:
+    """Least time (ms) an H100 SXM needs for smoothness calls over ``pixels`` pixels in
+    all: the map read once (and for the backward the gradient written once), and ~18
+    float32 operations a pixel forward (6 first and 4 second differences, 4 abs, 4 adds)
+    or ~35 backward (the 4 terms' signs, their weighted gather and the scaling)."""
+    nbytes = 4 * pixels * (2 if backward else 1)
+    t_bytes, t_ops = nbytes / PEAK_HBM, pixels * (35 if backward else 18) / PEAK_F32
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def step_smooth_calls(config: str, device) -> list:
+    """The maps of a step's smoothness calls, as the step's heads reach the loss: config
+    2's 4 depth heads (NCHW [B,1,H,W] viewed NHWC); config 4's depth heads and both
+    channels of its flow heads ([B,2,H,W] viewed NHWC), at each of 4 scales."""
+    g = np.random.RandomState(SEED + 7)
+    B = C2_BATCH if config == "depth_only" else C4_BATCH
+    H, W = (C2_HEIGHT, C2_WIDTH) if config == "depth_only" else (C4_HEIGHT, C4_WIDTH)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    calls = []
+    for s in range(4):
+        h, w = H >> s, W >> s
+        calls.append(t(g.uniform(0, 4, (B, 1, h, w))).permute(0, 2, 3, 1))
+        if config == "optflow_combine":
+            flow = t(g.randn(B, 2, h, w)).permute(0, 2, 3, 1)
+            calls += [flow[..., 0:1], flow[..., 1:2]]
+    return calls
+
+
+def _time_smooth(calls: list) -> dict:
+    """ms of the forward alone and of the forward and backward, kernels and plain term,
+    over ``calls`` (their sum, as the loss takes it)."""
+    leaves = [c.detach().clone().requires_grad_(True) for c in calls]
+    out = {}
+    for name, fn in (("kernel", smoothness_fused), ("plain", second_order_smoothness)):
+        iters = 50 if name == "kernel" else 20
+        with torch.no_grad():
+            out[f"{name}_fwd"] = time_ms(lambda: [fn(c) for c in calls], iters)
+        out[f"{name}_fwdbwd"] = time_ms(lambda: torch.autograd.grad(
+            sum(fn(c) for c in leaves), leaves), iters)
+    return out
+
+
+def phase_smooth_times(device, smi: str) -> dict:
+    """The kernels against the plain term, forward and backward, at config 2's scale 0
+    (the backward alone too) and over a step's calls in configs 2 and 4."""
+    x = step_smooth_calls("depth_only", device)[0]
+    px = x.shape[0] * x.shape[1] * x.shape[2]
+    row = _time_smooth([x])
+    leaf = x.detach().clone().requires_grad_(True)
+    for name, fn in (("kernel", smoothness_fused), ("plain", second_order_smoothness)):
+        out = fn(leaf)   # the backward alone, through autograd as the step runs it
+        row[f"{name}_bwd"] = time_ms(lambda: torch.autograd.grad(out, leaf,
+                                                                 retain_graph=True), 20)
+    bf, by = smooth_bound(px, False)
+    bb, _ = smooth_bound(px, True)
+    row.update(bound_fwd=bf, bound_bwd=bb, bound_by=by)
+    print(f"time smoothness config 2 scale 0 {tuple(x.shape)}: forward kernel "
+          f"{row['kernel_fwd']:.4f} ms, plain {row['plain_fwd']:.4f} ms, bound {bf:.4f} ms "
+          f"({by}); backward kernel {row['kernel_bwd']:.4f} ms, plain (autograd) "
+          f"{row['plain_bwd']:.4f} ms, bound {bb:.4f} ms; forward+backward kernel "
+          f"{row['kernel_fwdbwd']:.4f} ms, plain {row['plain_fwdbwd']:.4f} ms [{smi}]")
+    for config in ("depth_only", "optflow_combine"):
+        calls = step_smooth_calls(config, device)
+        px = sum(c.shape[0] * c.shape[1] * c.shape[2] for c in calls)
+        r = _time_smooth(calls)
+        bf, _ = smooth_bound(px, False)
+        bb, _ = smooth_bound(px, True)
+        row[config] = {**r, "bound_fwd": bf, "bound_bwd": bb}
+        print(f"time smoothness, the {len(calls)} calls of a {config} step ({px} pixels): "
+              f"forward kernel {r['kernel_fwd']:.4f} ms, plain {r['plain_fwd']:.4f} ms, bound "
+              f"{bf:.4f} ms; forward+backward kernel {r['kernel_fwdbwd']:.4f} ms, plain "
+              f"{r['plain_fwdbwd']:.4f} ms, bound {bf + bb:.4f} ms [{smi}]")
+    return row
+
+
+def phase_depth_only_times(device, smi: str) -> dict:
+    """ms/step of the bf16 config-2 step with the smoothness kernels and with the plain
+    term, in turns (plain, kernel, kernel, plain) on one state and batch."""
+    from tf_depth_estimation_torch.train.profile_step import pair_batch
+
+    batch = pair_batch(C2_BATCH, C2_HEIGHT, C2_WIDTH, SEED, device)
+    model = DispNet(DispNetVariant.depth4(), generator=torch.Generator().manual_seed(SEED),
+                    dtype=torch.bfloat16).to(device)
+    state = create_train_state(model)
+    step = make_depth_only_step(dataclasses.replace(
+        LossWeights.depth_only(), height=C2_HEIGHT, width=C2_WIDTH))
+    times = {"kernel": [], "plain": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        with plain_smoothness() if name == "plain" else contextlib.nullcontext():
+            times[name].append(time_ms(lambda: step(state, batch), 10))
+    out = {}
+    for name, ts in times.items():
+        out[name] = sum(ts) / len(ts)
+        print(f"time training step bf16 config 2 ({C2_HEIGHT}x{C2_WIDTH}, B={C2_BATCH}) "
+              f"smoothness={name}: {out[name]:.2f} ms/step (turns "
+              f"{', '.join(f'{t:.2f}' for t in ts)}; spread {max(ts) - min(ts):.2f} ms), "
+              f"{C2_BATCH / out[name] * 1e3:.1f} frames/s [{smi}]")
+    return out
+
+
+def reset_counts() -> None:
+    fused_tail.launches = bilinear_sample.launches = 0
+    smoothness_fused.launches = smoothness_fused.backward_launches = 0
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {"fused_tail": fused_tail.launches, "bilinear_sample": bilinear_sample.launches,
+            "smoothness_fwd": smoothness_fused.launches,
+            "smoothness_bwd": smoothness_fused.backward_launches}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     info = phase_device()
@@ -585,10 +839,9 @@ def main() -> None:
     if fwd["launches"] < 1:
         raise AssertionError("the f32 forward did not launch fused_tail")
 
-    fused_tail.launches = bilinear_sample.launches = 0  # a main path: serving
+    reset_counts()  # a main path: serving
     phase_serving(variables, "cuda")
-    torch.cuda.synchronize()
-    serving = {"fused_tail": fused_tail.launches, "bilinear_sample": bilinear_sample.launches}
+    serving = read_counts()
     print(f"serving launches: {serving}")
     if serving["fused_tail"] < 1:
         raise AssertionError("serving did not launch fused_tail")
@@ -596,23 +849,38 @@ def main() -> None:
     rows = phase_times(folded, info["smi"])
     main_row = rows[(8, torch.bfloat16)]  # the serving path's shapes and dtype
     sample_errs = phase_sampler("cuda", info["smi"])
+    smooth_errs = phase_smoothness("cuda", info["smi"])
 
     with tempfile.TemporaryDirectory() as tmp:
         dataset = write_dataset(tmp)
-        fused_tail.launches = bilinear_sample.launches = 0  # a main path: training
+        reset_counts()  # a main path: config-4 training
         phase_training("cuda", dataset, smi=info["smi"])
-        torch.cuda.synchronize()
-        training = {"fused_tail": fused_tail.launches,
-                    "bilinear_sample": bilinear_sample.launches}
+        training = read_counts()
         print(f"training launches: {training} in {C4_STEPS} steps [{info['smi']}]")
-        if training["bilinear_sample"] != LAUNCHES_PER_STEP * C4_STEPS:
-            raise AssertionError(f"training launched bilinear_sample "
-                                 f"{training['bilinear_sample']} times in {C4_STEPS} steps, "
-                                 f"not {LAUNCHES_PER_STEP} a step")
+        n_fwd, n_bwd = SMOOTH_PER_STEP["optflow_combine"]
+        if training["bilinear_sample"] != LAUNCHES_PER_STEP * C4_STEPS \
+                or training["smoothness_fwd"] != n_fwd * C4_STEPS \
+                or training["smoothness_bwd"] != n_bwd * C4_STEPS:
+            raise AssertionError(f"config-4 training launched {training} in {C4_STEPS} "
+                                 f"steps, not {LAUNCHES_PER_STEP} bilinear_sample and "
+                                 f"{n_fwd} + {n_bwd} smoothness a step")
         batch = first_batch(dataset, "cuda")
+
+        reset_counts()  # a main path: config-2 training with validation
+        c2 = phase_depth_only("cuda", dataset, smi=info["smi"])
+        depth_counts = read_counts()
+        print(f"depth_only launches: {depth_counts} in {C2_STEPS} steps and "
+              f"{c2['validations']} validations [{info['smi']}]")
+        n_fwd, n_bwd = SMOOTH_PER_STEP["depth_only"]
+        want = (n_fwd * C2_STEPS + SMOOTH_PER_VAL * c2["validations"], n_bwd * C2_STEPS)
+        if (depth_counts["smoothness_fwd"], depth_counts["smoothness_bwd"]) != want:
+            raise AssertionError(f"config-2 training launched smoothness {depth_counts}, "
+                                 f"not {want} (forward, backward)")
     phase_step_parity("cuda", batch, info["smi"])
     srow = phase_sampler_times("cuda", info["smi"])
     phase_training_times("cuda", batch, info["smi"])
+    mrow = phase_smooth_times("cuda", info["smi"])
+    phase_depth_only_times("cuda", info["smi"])
 
     kernels = [{
         "name": "fused_tail", "route": "cuda",
@@ -632,6 +900,17 @@ def main() -> None:
         # grid_sample(bilinear, zeros, align_corners=True): the closest library call, not
         # the same function (normalised coordinates, no wmask)
         "library_ms": srow["library_ms"],
+    }, {
+        # forward and backward of one call at config 2's scale 0 (B=10, 240x720);
+        # launches: forward + backward calls in the config-2 run
+        "name": "smoothness", "route": "cuda",
+        "source": "tf_depth_estimation_torch/csrc/smoothness.cu",
+        "replaces": "tf_depth_estimation_tpu/ops/pallas_losses.py:140",
+        "launches": depth_counts["smoothness_fwd"] + depth_counts["smoothness_bwd"],
+        "max_abs_err": smooth_errs["fwd"],
+        "ms": mrow["kernel_fwdbwd"], "plain_ms": mrow["plain_fwdbwd"],
+        "bound_ms": mrow["bound_fwd"] + mrow["bound_bwd"], "bound_by": mrow["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the same function
     }]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {info['smi']}")

@@ -1,6 +1,6 @@
 """The port and chip_smoke.py run without JAX, Flax, orbax or the JAX package: the GPU
-machine has none of them. The child imports every port module, serves, and runs one CPU
-training step of config 4 through the CLI."""
+machine has none of them. The child imports every port module, serves, runs one CPU
+training step of config 4 and one of config 2, with a validation, through the CLIs."""
 import os
 import pkgutil
 import re
@@ -22,6 +22,7 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 import tempfile
 import chip_smoke
 from tf_depth_estimation_torch.ops.bilinear_sample import bilinear_sample
+from tf_depth_estimation_torch.ops.smoothness import smoothness_fused
 from tf_depth_estimation_torch.utils.npz import load_variables_npz
 variables, _ = load_variables_npz(chip_smoke.TEACHER)
 fwd = chip_smoke.phase_forward(variables, "cpu", height=64, width=96, batch=2)
@@ -31,7 +32,10 @@ with tempfile.TemporaryDirectory() as tmp:
     dataset = chip_smoke.write_dataset(tmp, batch=2, read_hw=(48, 96))
     trained = chip_smoke.phase_training("cpu", dataset, height=32, width=64,
                                         read_hw=(48, 96), batch=2, steps=1, dtype="float32")
+    depth = chip_smoke.phase_depth_only("cpu", dataset, height=48, width=96, batch=2,
+                                        steps=1, val_check=1, dtype="float32")
 assert trained["steps"] == 1 and bilinear_sample.launches == 0, trained
+assert depth["validations"] == 1 and smoothness_fused.launches == 0, depth
 print("ISOLATED_OK")
 """
 
@@ -61,7 +65,9 @@ def test_every_port_module_is_imported_by_the_child():
             "tf_depth_estimation_torch.ops.bilinear_sample",
             "tf_depth_estimation_torch.geometry.warp",
             "tf_depth_estimation_torch.train.steps",
-            "tf_depth_estimation_torch.train.experiments.optflow_combine"} <= names
+            "tf_depth_estimation_torch.train.experiments.optflow_combine",
+            "tf_depth_estimation_torch.ops.smoothness",
+            "tf_depth_estimation_torch.train.experiments.depth_only"} <= names
 
 
 def test_no_port_file_names_jax_in_an_import():

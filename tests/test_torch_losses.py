@@ -87,3 +87,34 @@ def test_optflow_combine_loss_and_gradients_match_jax(sampler):
         for s, (t, r) in enumerate(zip(tp[k], ref_grads[k])):
             np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), **TOL_GRAD,
                                        err_msg=f"{k}[{s}]")
+
+
+def test_si_log_rmse_matches_jax():
+    """The reference's metric with its ``+ mean(d)**2``, on positive depths."""
+    rng = np.random.RandomState(1)
+    label, pred = (rng.uniform(0.4, 3.75, (2, 16, 24, 1)).astype(np.float32) for _ in "ab")
+    np.testing.assert_allclose(
+        basic.si_log_rmse(torch.from_numpy(label), torch.from_numpy(pred)).item(),
+        float(jbasic.si_log_rmse(jnp.asarray(label), jnp.asarray(pred))), rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["depth_only_loss", "depth_only_val_loss"])
+def test_depth_only_losses_and_gradients_match_jax(name):
+    """Config 2's train and validation losses on the depth pyramid of ``_batch``, in
+    value and in gradient with respect to the predictions."""
+    batch, preds = _batch(seed=1)
+    jw = dataclasses.replace(JLossWeights.depth_only(), height=H, width=W)
+    (_, ref_comps), ref_grads = jax.value_and_grad(
+        lambda p: getattr(jpipelines, name)(p, jnp.asarray(batch["label"]), jw),
+        has_aux=True)([jnp.asarray(a) for a in preds["depths"]])
+    w = dataclasses.replace(LossWeights.depth_only(), height=H, width=W)
+    tp = [torch.from_numpy(a).requires_grad_(True) for a in preds["depths"]]
+    total, comps = getattr(pipelines, name)(tp, torch.from_numpy(batch["label"]), w)
+    total.backward()
+    assert sorted(comps) == sorted(ref_comps)
+    for k in comps:
+        np.testing.assert_allclose(comps[k].item(), float(ref_comps[k]), **TOL_LOSS,
+                                   err_msg=k)
+    for s, (t, r) in enumerate(zip(tp, ref_grads)):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), **TOL_GRAD,
+                                   err_msg=f"depths[{s}]")

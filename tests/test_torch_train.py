@@ -189,12 +189,46 @@ def test_cli_refuses_flags_of_later_slices(flag, tmp_path):
         optflow_combine.main(["--dataset_dir", str(tmp_path), flag, "--device", "cpu"])
 
 
+# the flags of the JAX CLIs that the port accepts without reading them further (JAX reads
+# none of them on these paths but --validation_check), with a value and its parsed form
+JAX_FLAGS = [("--validate_dir", "val/", "val/"), ("--validation_check", "7", 7),
+             ("--init_checkpoint_file", "init.npz", "init.npz"),
+             ("--image_summary_freq", "9", 9), ("--fixture_images", "a.png,b.png",
+                                                   "a.png,b.png")]
+
+
+@pytest.mark.parametrize("flag,value,parsed", JAX_FLAGS)
+def test_cli_accepts_the_flags_of_the_jax_cli(flag, value, parsed, tmp_path):
+    args = optflow_combine.parse_args(["--dataset_dir", str(tmp_path), flag, value,
+                                       "--device", "cpu"])
+    assert getattr(args, flag[2:]) == parsed
+
+
+def test_cli_defaults_of_those_flags_match_jax():
+    from tf_depth_estimation_tpu.train.experiments.common import base_parser
+
+    ref = base_parser("jax").parse_args([])
+    args = optflow_combine.parse_args([])
+    for flag, _, _ in JAX_FLAGS:
+        assert getattr(args, flag[2:]) == getattr(ref, flag[2:]), flag
+
+
 def test_profile_step_runs_on_cpu():
     """The profiler breakdown's control flow at a small size; on the CPU it sees no
     device kernels."""
     from tf_depth_estimation_torch.train import profile_step
 
     out = profile_step.profile(steps=1, device="cpu", batch=2, height=32, width=64)
-    assert out["wall_ms"] > 0 and out["kernel_ms"] == 0.0
+    assert out["wall_ms"] > 0 and out["kernel_ms"] == 0.0 and out["launches"] == 0
     assert profile_step.kind_of("void bilinear_sample_kernel(float const*)") == \
         "bilinear_sample kernel"
+    assert profile_step.kind_of("(anonymous namespace)::smooth_backward_kernel(Plane)") == \
+        "smoothness kernels"
+
+
+def test_profile_step_runs_config_2_on_cpu():
+    from tf_depth_estimation_torch.train import profile_step
+
+    out = profile_step.profile(steps=1, device="cpu", batch=2, height=32, width=64,
+                               config="depth_only")
+    assert out["wall_ms"] > 0 and out["launches"] == 0

@@ -16,3 +16,11 @@ def second_order_smoothness(pred: torch.Tensor) -> torch.Tensor:
     dy2 = dy[:, 1:] - dy[:, :-1]
     return dx2.abs().mean() + dxdy.abs().mean() + dydx.abs().mean() + dy2.abs().mean()
 
+
+def si_log_rmse(label: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """The reference's 'scale-invariant' log RMSE, sqrt(mean(d^2) + mean(d)^2) with
+    d = log(label) - log(pred) (validation metric, ``train_depth_only.py:248-249``). The
+    reference adds the squared mean where Eigen et al. subtract it, so global scale error
+    still counts; kept as it is for parity."""
+    d = torch.log(label) - torch.log(pred)
+    return torch.sqrt((d * d).mean() + d.mean() ** 2)

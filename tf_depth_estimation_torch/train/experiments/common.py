@@ -20,21 +20,29 @@ NOT_PORTED = {
 
 
 def base_parser(description: str, batch_size: int, max_steps: int) -> argparse.ArgumentParser:
-    """The flags of ``tf_depth_estimation_tpu/train/experiments/common.py`` that the
-    ported paths use, plus ``--device``."""
+    """The flags of ``tf_depth_estimation_tpu/train/experiments/common.py``, with its types
+    and defaults, plus ``--device``. Those of later slices are refused (``NOT_PORTED``);
+    ``--validate_dir`` and ``--init_checkpoint_file`` are accepted and unread, as in
+    JAX, and ``--image_summary_freq`` and ``--fixture_images`` are read there only under
+    ``--rich_summaries``."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--dataset_dir", default="")
+    p.add_argument("--validate_dir", default="./validation")
     p.add_argument("--checkpoint_dir", default="./checkpoints")
     p.add_argument("--learning_rate", type=float, default=2e-4)
     p.add_argument("--beta1", type=float, default=0.9)
     p.add_argument("--batch_size", type=int, default=batch_size)
     p.add_argument("--max_steps", type=int, default=max_steps)
     p.add_argument("--save_latest_freq", type=int, default=1000)
+    p.add_argument("--validation_check", type=int, default=100)
     p.add_argument("--summary_freq", type=int, default=100)
     p.add_argument("--continue_train", action="store_true")
+    p.add_argument("--init_checkpoint_file", default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--num_epochs", type=int, default=1500)
+    p.add_argument("--image_summary_freq", type=int, default=500)
+    p.add_argument("--fixture_images", default=None)
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
     for flag, why in NOT_PORTED.items():
         p.add_argument(f"--{flag}", action="store_true", help=f"not ported: {why}")

@@ -31,13 +31,17 @@ from tf_depth_estimation_torch.train.state import create_train_state
 from tf_depth_estimation_torch.train.steps import make_optflow_combine_step
 
 
-def main(argv=None):
+def parse_args(argv=None):
     p = base_parser(__doc__, batch_size=10, max_steps=20000)
     p.add_argument("--image_height", type=int, default=240)
     p.add_argument("--image_width", type=int, default=720)
     p.add_argument("--resized_height", type=int, default=224)
     p.add_argument("--resized_width", type=int, default=480)
-    args = parse(p, argv)
+    return parse(p, argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
 
     H, W = args.resized_height, args.resized_width
     w = dataclasses.replace(LossWeights.optflow_combine(), height=H, width=W,

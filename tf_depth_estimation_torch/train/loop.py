@@ -38,10 +38,12 @@ class MetricLogger:
 def run_training(*, state: TrainState, train_step: Callable, batches: Iterator[dict],
                  max_steps: int, logger: MetricLogger,
                  checkpoint: Optional[CheckpointManager] = None,
-                 save_latest_freq: int = 1000, summary_freq: int = 100):
+                 save_latest_freq: int = 1000, summary_freq: int = 100,
+                 validation_check: int = 0, val_fn: Optional[Callable] = None):
     """Drive ``train_step`` over ``batches`` from ``state.step`` to ``max_steps`` (or the
-    end of the batches). Saves every ``save_latest_freq`` steps and at the end; returns
-    ``(state, last logged metrics)``."""
+    end of the batches). Every ``validation_check`` steps ``val_fn(state)`` gives a dict
+    of metrics, logged as a ``"val"`` record, or None, logged as nothing. Saves every
+    ``save_latest_freq`` steps and at the end; returns ``(state, last logged metrics)``."""
     start = state.step
     t0 = time.time()
     frames = 0
@@ -60,6 +62,10 @@ def run_training(*, state: TrainState, train_step: Callable, batches: Iterator[d
             metrics["frames_per_sec"] = frames / dt
             logger.log(step + 1, "train", metrics)
             last_metrics = metrics
+        if validation_check and val_fn and (step + 1) % validation_check == 0:
+            val = val_fn(state)
+            if val is not None:
+                logger.log(step + 1, "val", val)
         if checkpoint is not None and (step + 1) % save_latest_freq == 0:
             checkpoint.save(step + 1, state)
     if checkpoint is not None and checkpoint.latest_step() != state.step:

@@ -3,6 +3,8 @@
 A step runs the forward in train mode (which moves the batch-norm running statistics),
 the loss, the backward and the Adam update, and returns ``(state, metrics)`` with the state
 updated in place and the metrics as detached 0-d tensors (reading them syncs the device).
+A validation step runs the eval-mode forward (running statistics) without gradients and
+returns the metrics alone.
 """
 from __future__ import annotations
 
@@ -11,12 +13,52 @@ from typing import Dict
 import torch
 
 from tf_depth_estimation_torch.losses.config import LossWeights
-from tf_depth_estimation_torch.losses.pipelines import optflow_combine_loss
+from tf_depth_estimation_torch.losses.pipelines import (
+    depth_only_loss,
+    depth_only_val_loss,
+    optflow_combine_loss,
+)
 from tf_depth_estimation_torch.train.state import TrainState
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+def _apply(state: TrainState, total: torch.Tensor, comps: dict):
+    """Backward and Adam update; the detached metrics."""
+    state.optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    state.optimizer.step()
+    state.step += 1
+    return state, {k: v.detach() for k, v in comps.items()}
+
+
+def make_depth_only_step(w: LossWeights):
+    """BASELINE config 2 (``train_depth_only.py``): depth4 DispNet on the target image;
+    ``depth_only_loss``. Batch keys: ``tgt_image`` [B, H, W, 3], ``label`` [B, H, W, 1]."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.train()
+        outs = state.model(batch["tgt_image"].permute(0, 3, 1, 2))
+        total, comps = depth_only_loss([_nhwc(d) for d in outs], batch["label"], w)
+        return _apply(state, total, comps)
+
+    return step
+
+
+def make_depth_only_val_step(w: LossWeights):
+    """Config 2's validation: the eval-mode forward and ``depth_only_val_loss``, without
+    gradients; returns the components as detached 0-d tensors."""
+
+    def val_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.eval()
+        with torch.no_grad():
+            outs = state.model(batch["tgt_image"].permute(0, 3, 1, 2))
+            _, comps = depth_only_val_loss([_nhwc(d) for d in outs], batch["label"], w)
+        return comps
+
+    return val_step
 
 
 def make_optflow_combine_step(w: LossWeights):
@@ -35,10 +77,6 @@ def make_optflow_combine_step(w: LossWeights):
             batch["tgt_image"], batch["src_image"], depths, [f[..., 0:1] for f in flows],
             [f[..., 1:2] for f in flows], batch["label"], batch["tgt2src_projs"][:, 0],
             batch["intrinsics"], w)
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        state.optimizer.step()
-        state.step += 1
-        return state, {k: v.detach() for k, v in comps.items()}
+        return _apply(state, total, comps)
 
     return step
