@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, check and time the CUDA kernels,
 serve depth4 DispNet at 576x384 with the committed teacher weights, train config 4
-(depth10_flow, joint depth + optical flow) at 224x480, and train config 2 (depth4,
-supervised depth with in-loop validation) at 240x720.
+(depth10_flow, joint depth + optical flow) at 224x480, train config 2 (depth4, supervised
+depth with in-loop validation) at 240x720, and train both phases of split_training
+(DepthPoseNet pairwise, then depth4 over [coarse depth | image]) at 192x256.
 
     python3 chip_smoke.py
 
@@ -46,7 +47,32 @@ Phases, each raising on failure:
      record finite; the checkpoint read back into ``DispNet(depth4)``;
  13. times: the smoothness kernels, the plain term and the bound, forward and backward,
      at config 2's scale 0 and over a step's calls in configs 2 and 4; ms/step of the
-     bf16 config-2 step with the kernels and with the plain term, in turns.
+     bf16 config-2 step with the kernels and with the plain term, in turns;
+ 14. kernel vs plain: ``sig_l2_fused`` (forward, and backward for pred and gt) against
+     the plain composition (``ops/sig.py``) at phase 2's four scales (B=1, 192x256 down
+     to 24x32, delta 2), the 5-delta ``full_scales`` call at 192x256 (B=1 and B=8), a
+     coarse map where the deltas reach past the map, an odd 37x53 map and a strided C=1
+     plane: the forward within rtol 1e-5 of the float32 and the float64 plain version,
+     the backward within 1e-6 of autograd of the plain version and equal, bit for bit, to
+     ``sig_l2_backward_reference``, and the same bits in two runs;
+ 15. training, two main paths: split_training's phase 1 (the truncated DepthPoseNet
+     pairwise) and phase 2 (depth4 DispNet over [coarse depth | image]), bf16, batch 1,
+     192x256, 5 steps each through ``train_pair`` and ``train_single``, the functions the
+     CLI's ``main`` calls, with the launch counts set to 0 before each phase and read
+     after it (2 forward and 2 backward ``sig_l2_fused`` launches a phase-1 step, 4 and 4
+     a phase-2 step); every loss component finite; both checkpoint groups read back into
+     ``DepthPoseNet`` and a 4-channel ``DispNet(depth4)`` with finite eval forwards;
+ 16. step parity: one float32 step of each phase with the kernel against one with the
+     plain sig composition from one init and batch, and the bf16 step's loss against the
+     float32 one;
+ 17. times: the sig kernels, the plain composition and the bound, forward and forward +
+     backward, at phase 2's four step calls and at the 5-delta 192x256 B=8 call; ms/step
+     of each phase's bf16 step with the kernel and with the plain version, in turns; and
+     launches a step of each phase from ``train/profile_step.py``.
+The GPU machine has no ``h5py``, so the smoke cannot write the DeMoN HDF5 files that the
+split_training CLI reads (``data/demon.py``): phase 15 feeds the CLI's phase functions
+batches of synthetic scenes, augmented and preprocessed by ``data/demon.py``'s own
+``augment`` and ``preprocess``; the CPU tests run the CLI on an HDF5 file.
 The line before the last is one JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``. There is no CPU path: without CUDA it exits non-zero.
 TF32 is off throughout, so the float32 checks are float32 and not TF32.
@@ -74,6 +100,7 @@ from tf_depth_estimation_torch.geometry.warp import projective_inverse_warp
 from tf_depth_estimation_torch.infer.fast import fast_depth_forward, fold_weights, folded_forward
 from tf_depth_estimation_torch.infer.predictor import DepthPredictor
 from tf_depth_estimation_torch.losses.config import LossWeights
+from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
 from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
 from tf_depth_estimation_torch.ops import _build
 from tf_depth_estimation_torch.ops.bilinear_sample import (
@@ -85,17 +112,26 @@ from tf_depth_estimation_torch.ops.fused_tail import (
     fused_tail,
     fused_tail_reference,
 )
+from tf_depth_estimation_torch.ops.schedules import exponential_decay
+from tf_depth_estimation_torch.ops.sig import sig_l2_plain
+from tf_depth_estimation_torch.ops.sig_l2 import sig_l2_backward_reference, sig_l2_fused
 from tf_depth_estimation_torch.ops.smoothness import (
     second_order_smoothness,
     smoothness_backward_reference,
     smoothness_fused,
 )
-from tf_depth_estimation_torch.train.experiments import depth_only, optflow_combine
-from tf_depth_estimation_torch.train.profile_step import plain_smoothness
+from tf_depth_estimation_torch.train import profile_step
+from tf_depth_estimation_torch.train.experiments import depth_only, optflow_combine, split_training
+from tf_depth_estimation_torch.train.profile_step import demon_batch, plain_sig, plain_smoothness
 from tf_depth_estimation_torch.train.state import create_train_state
-from tf_depth_estimation_torch.train.steps import make_depth_only_step, make_optflow_combine_step
+from tf_depth_estimation_torch.train.steps import (
+    make_depth_only_step,
+    make_optflow_combine_step,
+    make_pairwise_step,
+    make_single_depth_step,
+)
 from tf_depth_estimation_torch.utils.npz import load_variables_npz
-from tf_depth_estimation_torch.weights import dispnet_from_variables
+from tf_depth_estimation_torch.weights import depth_pose_from_variables, dispnet_from_variables
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TEACHER = os.path.join(ROOT, "weights", "depth4_teacher_576x384.npz")
@@ -148,6 +184,23 @@ SMOOTH_PER_VAL = 4
 # adds the same sgn(term) / (B count) contributions as autograd in another order, so it
 # is within a few float32 ulp of max|g|
 TOL_SMOOTH_FWD, TOL_SMOOTH_BWD = 1e-5, 1e-6
+# split_training, the fourth and fifth paths (train/experiments/split_training.py
+# defaults): DeMoN scenes at 192x256, batch 1, bf16; 5 steps of each phase
+ST_HEIGHT, ST_WIDTH, ST_BATCH, ST_STEPS = 192, 256, 1, 5
+# sig_l2_fused launches (forward, backward) a step: delta 2 at scales 2 and 3 in phase 1,
+# at all four scales in phase 2
+SIG_PER_STEP = {"pair": (2, 2), "single": (4, 4)}
+# sig_l2_fused vs the plain composition: the forward sums the same per-pixel roots in
+# another order (block partials, then a double sum), rtol 1e-5 as tests/test_pallas.py:56;
+# the backward adds the same terms as autograd, rounded in another order, within 1e-6 of
+# max|g| of autograd's gradient in each case (|g| is ~1e-6 to 1e-2 here, so an absolute
+# 1e-6 as tests/test_pallas.py:66 would let a wrong B=8 gradient through); the gather
+# formula is the kernel's arithmetic op for op, so the two are equal
+TOL_SIG_FWD, TOL_SIG_BWD = 1e-5, 1e-6
+FULL_SCALE_DELTAS = (1, 2, 4, 8, 16)
+# the step at which the parity steps run: the sig weight ramps from 0 at step 0, so a
+# step-0 parity would multiply the sig term's gradient by 0
+PARITY_STEP = 1000
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32, PEAK_BF16, PEAK_HBM = 67e12, 989e12, 3.35e12
 
@@ -167,7 +220,7 @@ def phase_device() -> dict:
     return info
 
 
-KERNELS = ("fused_tail", "bilinear_sample", "smoothness")
+KERNELS = ("fused_tail", "bilinear_sample", "smoothness", "sig_l2")
 
 
 def phase_build() -> None:
@@ -812,24 +865,332 @@ def phase_depth_only_times(device, smi: str) -> dict:
     return out
 
 
+def sig_cases(device) -> dict:
+    """name -> (pred base, view, gt, deltas): ``view(base)`` is the [B, H, W, 1] prediction.
+    Phase 2's four scales (B=1, delta 2), the 5-delta full_scales call at 192x256 (B=1 and
+    8), a coarse map that the longer deltas overreach, an odd size, and channel 1 of an
+    NCHW [B, 2, H, W] head viewed NHWC. Values as the heads and labels give: disparities in
+    (0, 4], inverse depths of 0.4 to 2.5 m."""
+    g = np.random.RandomState(SEED + 8)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    same = lambda x: x
+    cases = {}
+
+    def add(name, B, H, W, deltas):
+        cases[name] = (t(g.uniform(0.05, 4, (B, H, W, 1))), same,
+                       t(1 / g.uniform(0.4, 2.5, (B, H, W, 1))), deltas)
+
+    for s in range(4):
+        add(f"phase2 s{s}", ST_BATCH, ST_HEIGHT >> s, ST_WIDTH >> s, (2,))
+    add("full_scales B=1", 1, ST_HEIGHT, ST_WIDTH, FULL_SCALE_DELTAS)
+    add("full_scales B=8", 8, ST_HEIGHT, ST_WIDTH, FULL_SCALE_DELTAS)
+    add("coarse 12x16", 2, 12, 16, FULL_SCALE_DELTAS)   # d = 16 >= H and >= W
+    add("odd 37x53", 2, 37, 53, FULL_SCALE_DELTAS)
+    head = t(g.uniform(0.05, 4, (2, 2, 48, 64)))
+    cases["strided plane"] = (head, lambda x: x.permute(0, 2, 3, 1)[..., 1:2],
+                              t(1 / g.uniform(0.4, 2.5, (2, 48, 64, 1))), (2,))
+    return cases
+
+
+def _sig_grad(fn, base, view, gt, deltas):
+    """(fn(view(base), gt), d/d view(base), d/d gt) through autograd, the prediction a
+    view of a leaf as the step's heads are."""
+    leaf, gleaf = base.detach().clone().requires_grad_(True), gt.detach().clone().requires_grad_(True)
+    out = fn(view(leaf), gleaf, deltas)
+    dbase, dgt = torch.autograd.grad(out, [leaf, gleaf])
+    return out.detach(), view(dbase), dgt
+
+
+def phase_sig(device, smi: str) -> dict:
+    """sig_l2_fused vs the plain composition: forward (float32 and float64 plain),
+    backward for pred and gt (autograd of the plain version, and the gather formula), and
+    the same bits twice."""
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for name, (base, view, gt, deltas) in sig_cases(device).items():
+        got, dp, dg = _sig_grad(sig_l2_fused, base, view, gt, deltas)
+        got2, dp2, dg2 = _sig_grad(sig_l2_fused, base, view, gt, deltas)
+        ref, rp, rg = _sig_grad(sig_l2_plain, base, view, gt, deltas)
+        x = view(base)
+        ref64 = sig_l2_plain(x.double(), gt.double(), deltas)
+        gp, gg = sig_l2_backward_reference(x, gt, torch.ones((), device=device), deltas)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, got2) and torch.equal(dp, dp2) and torch.equal(dg, dg2)):
+            raise AssertionError(f"sig {name}: two runs differ")
+        err, err64 = abs(got.item() - ref.item()), abs(got.item() - ref64.item())
+        # each gradient (d pred, d gt) within TOL_SIG_BWD of its own max|g|
+        gerrs = [((a - r).abs().max().item(), TOL_SIG_BWD * r.abs().max().item())
+                 for a, r in ((dp, rp), (dg, rg))]
+        (ep, tp), (eg, tg) = gerrs
+        gather_equal = torch.equal(dp, gp) and torch.equal(dg, gg)
+        print(f"kernel sig_l2 {name} {tuple(x.shape)} strides {x.stride()} deltas {deltas}: "
+              f"forward {got.item():.7f}, abs err {err:.3e} vs plain f32, {err64:.3e} vs "
+              f"plain f64 (rtol {TOL_SIG_FWD:.0e}); backward abs err vs autograd {ep:.3e} "
+              f"d pred (limit {tp:.3e}), {eg:.3e} d gt (limit {tg:.3e}), limits "
+              f"{TOL_SIG_BWD:.0e} of max|g|; bit-equal to the gather formula: "
+              f"{gather_equal}; two runs bit-equal [{smi}]")
+        if err > TOL_SIG_FWD * abs(ref.item()) or err64 > TOL_SIG_FWD * abs(ref64.item()) \
+                or any(e > t for e, t in gerrs) or not gather_equal:
+            raise AssertionError(f"sig {name}: beyond its tolerances")
+        worst["fwd"] = max(worst["fwd"], err)
+        worst["bwd"] = max(worst["bwd"], ep, eg)
+    return worst
+
+
+def demon_batches(batch: int, height: int, width: int, device, seed: int = SEED):
+    """An endless stream of DeMoN batches of synthetic scenes (``demon_batch``)."""
+    rng = np.random.RandomState(seed)
+    while True:
+        yield demon_batch(batch, height, width, rng, device)
+
+
+def _records(directory: str, comps) -> list:
+    with open(os.path.join(directory, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    if not all(np.isfinite(r[k]) for r in records for k in comps):
+        raise AssertionError(f"non-finite loss in {directory}: {records}")
+    return records
+
+
+def phase_split_training(device, root: str, *, height: int = ST_HEIGHT,
+                         width: int = ST_WIDTH, batch: int = ST_BATCH,
+                         steps: int = ST_STEPS, dtype: str = "bfloat16",
+                         smi: str = "") -> dict:
+    """split_training's two phases for ``steps`` steps each through the CLI's
+    ``train_pair`` and ``train_single``, with the launch counts set to 0 before each phase
+    and read after it; every loss component finite; both checkpoint groups read back
+    into DepthPoseNet and a 4-channel DispNet with finite eval forwards."""
+    pair_dir, single_dir = os.path.join(root, "pair"), os.path.join(root, "single")
+    args = split_training.parse_args([
+        "--checkpoint_dir", pair_dir, "--checkpoint_dir_single", single_dir,
+        "--image_height", str(height), "--image_width", str(width),
+        "--batch_size", str(batch), "--max_steps", str(steps),
+        "--max_steps_single", str(steps), "--summary_freq", "1",
+        "--save_latest_freq", str(steps), "--dtype", dtype, "--device", str(device),
+        "--seed", str(SEED)])
+    w = split_training.loss_weights(args)
+    out = {}
+    t0 = time.perf_counter()
+    reset_counts()  # a main path: phase 1
+    pair = split_training.train_pair(args, w, split_training.pair_state(args),
+                                     demon_batches(batch, height, width, device))
+    out["pair"] = read_counts()
+    reset_counts()  # a main path: phase 2
+    single = split_training.train_single(args, w, pair,
+                                         demon_batches(batch, height, width, device,
+                                                       seed=SEED + 1))
+    out["single"] = read_counts()
+    out["seconds"] = time.perf_counter() - t0
+    recs = {"pair": _records(pair_dir, ("total", "depth", "cam", "consist", "sig", "exp")),
+            "single": _records(single_dir, ("total", "depth", "sig"))}
+    if pair.step != steps or single.step != steps or any(len(r) != steps
+                                                         for r in recs.values()):
+        raise AssertionError(f"split_training: steps {pair.step}, {single.step}, "
+                             f"records {recs}")
+    for phase, records in recs.items():
+        for r in records:
+            print(f"split_training {phase} step {r['step']}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in r.items()
+                if k not in ("step", "scope", "steps_per_sec", "frames_per_sec")) + f" [{smi}]")
+    x = next(demon_batches(batch, height, width, device, seed=SEED + 2))
+    pv, _ = load_variables_npz(os.path.join(pair_dir, f"{split_training.PAIR_GROUP}-{steps}.npz"))
+    sv, _ = load_variables_npz(os.path.join(single_dir,
+                                            f"{split_training.SINGLE_GROUP}-{steps}.npz"))
+    pair_model = depth_pose_from_variables(pv, device=device)
+    single_model = dispnet_from_variables(sv, device=device)
+    with torch.no_grad():
+        disps, pose, masks = pair_model(x["image_pair"].permute(0, 3, 1, 2))
+        inp = next(split_training.single_batches(pair_model, iter([x])))["input"]
+        depths = single_model(inp.permute(0, 3, 1, 2))
+    shapes = [(batch, 1, height >> s, width >> s) for s in (2, 3)]
+    outs = [*disps, pose, *masks, *depths]
+    if pair_model.full_resolution or [tuple(d.shape) for d in disps] != shapes \
+            or single_model.encoder["cnv1"].conv.weight.shape[1] != 4 or len(depths) != 4 \
+            or not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError(f"split_training checkpoints: {[tuple(o.shape) for o in outs]}")
+    print(f"split_training: {steps} steps of phase 1 and {steps} of phase 2 ({dtype}, "
+          f"{height}x{width}, batch {batch}) in {out['seconds']:.1f} s host clock; every loss "
+          f"component finite; {split_training.PAIR_GROUP}-{steps}.npz read back into "
+          f"DepthPoseNet and {split_training.SINGLE_GROUP}-{steps}.npz into a 4-channel "
+          f"DispNet(depth4), eval forwards finite [{smi}]")
+    return out
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b) if b else abs(a - b)
+
+
+def _parity_run(phase: str, sd: dict, batch: dict, device, dtype, plain: bool):
+    """One step of ``phase`` from the state dict ``sd`` at step PARITY_STEP; (metrics,
+    parameters after the step)."""
+    w = dataclasses.replace(LossWeights.split_training(), height=ST_HEIGHT, width=ST_WIDTH)
+    if phase == "pair":
+        model = DepthPoseNet(dtype=dtype)
+        state = create_train_state(model, lr_schedule=exponential_decay(2e-4, 10000, 0.96))
+        step = make_pairwise_step(w)
+    else:
+        model = DispNet(DispNetVariant.depth4(), in_channels=4, dtype=dtype)
+        state = create_train_state(model)
+        step = make_single_depth_step(w)
+    model.load_state_dict(sd)
+    model.to(device)
+    state.step = PARITY_STEP
+    with plain_sig() if plain else contextlib.nullcontext():
+        state, metrics = step(state, batch)
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: p.detach() for k, p in state.model.named_parameters()})
+
+
+def phase_split_parity(device, smi: str) -> dict:
+    """One f32 step of each phase with the sig kernel vs one with the plain composition,
+    from one init and batch at step PARITY_STEP; the bf16 step's loss against the f32 one."""
+    x = next(demon_batches(ST_BATCH, ST_HEIGHT, ST_WIDTH, device, seed=SEED + 3))
+    pair_sd = copy.deepcopy(DepthPoseNet(
+        generator=torch.Generator().manual_seed(SEED)).state_dict())
+    coarse_net = DepthPoseNet().to(device)
+    coarse_net.load_state_dict(pair_sd)
+    batches = {"pair": x,
+               "single": next(split_training.single_batches(coarse_net, iter([x])))}
+    sds = {"pair": pair_sd, "single": copy.deepcopy(DispNet(
+        DispNetVariant.depth4(), in_channels=4,
+        generator=torch.Generator().manual_seed(SEED)).state_dict())}
+    out, lr = {}, 2e-4
+    for phase in ("pair", "single"):
+        (lk, pk), (lp, pp), (lb, _) = (
+            _parity_run(phase, sds[phase], batches[phase], device, dt, plain)
+            for dt, plain in ((torch.float32, False), (torch.float32, True),
+                              (torch.bfloat16, False)))
+        loss_err = max(_rel(lk[k], lp[k]) for k in lp)
+        off = total = 0
+        worst = 0.0
+        for k in pp:
+            diff = (pk[k] - pp[k]).abs()
+            worst = max(worst, diff.max().item())
+            off += int((diff > TOL_STEP["param_atol"]).sum())
+            total += diff.numel()
+        bf16_err = _rel(lb["total"], lp["total"])
+        print(f"step parity f32 split_training {phase} at step {PARITY_STEP}, sig kernel vs "
+              f"plain: " + ", ".join(f"{k} {lk[k]:.6f}/{lp[k]:.6f}" for k in lp)
+              + f"; loss components rel err max {loss_err:.2e} (tolerance "
+              f"{TOL_STEP['loss_rtol']:.0e}); params after Adam: max abs diff {worst:.2e} "
+              f"(tolerance 2 lr = {2 * lr:.0e}), {off} of {total} ({off / total:.4%}) "
+              f"beyond {TOL_STEP['param_atol']:.0e} (tolerance "
+              f"{TOL_STEP['param_share_off']:.0%}); bf16 total {lb['total']:.4f} vs f32 "
+              f"{lp['total']:.4f}, rel {bf16_err:.2e} (tolerance {TOL_BF16_LOSS}) [{smi}]")
+        if loss_err > TOL_STEP["loss_rtol"] or worst > 2 * lr * (1 + 1e-4) \
+                or off / total >= TOL_STEP["param_share_off"] or bf16_err > TOL_BF16_LOSS:
+            raise AssertionError(f"split_training {phase} step parity beyond its tolerances")
+        out[phase] = {"loss_rel_err": loss_err, "param_share_off": off / total,
+                      "bf16_rel": bf16_err}
+    return out
+
+
+def sig_bound(calls: list, backward: bool) -> tuple:
+    """Least time (ms) an H100 SXM needs for sig calls ``[(pred, gt, deltas), ...]``:
+    pred and gt read once (8 B a pixel) forward; pred and gt read and d pred written
+    (12 B a pixel) backward, the label taking no gradient. Operations: ~15 float32 a term
+    forward (per map a difference, two abs, two adds and a quotient, then the difference,
+    its square and the sum) and ~24 backward (the term's two quotients once, its scale and
+    the derivatives at both of its ends for d pred), plus ~2 a pixel (eps and the root,
+    or the cotangent quotient), counting the terms that lie inside the map."""
+    pixels = terms = 0
+    for pred, _, deltas in calls:
+        B, H, W, _ = pred.shape
+        pixels += B * H * W
+        terms += sum(B * (H * max(W - d, 0) + max(H - d, 0) * W) for d in deltas)
+    nbytes = pixels * (12 if backward else 8)
+    ops = terms * (24 if backward else 15) + 2 * pixels
+    t_bytes, t_ops = nbytes / PEAK_HBM, ops / PEAK_F32
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _time_sig(calls: list) -> dict:
+    """ms of the forward alone and of the forward and backward (d pred, as the loss
+    needs), kernel and plain composition, over ``calls`` (their sum, as the loss takes
+    it)."""
+    leaves = [p.detach().clone().requires_grad_(True) for p, _, _ in calls]
+    out = {}
+    for name, fn in (("kernel", sig_l2_fused), ("plain", sig_l2_plain)):
+        iters = 50 if name == "kernel" else 20
+        with torch.no_grad():
+            out[f"{name}_fwd"] = time_ms(lambda: [fn(p, g, d) for p, g, d in calls], iters)
+        out[f"{name}_fwdbwd"] = time_ms(lambda: torch.autograd.grad(
+            sum(fn(p, g, d) for p, (_, g, d) in zip(leaves, calls)), leaves), iters)
+    return out
+
+
+def phase_sig_times(device, smi: str) -> dict:
+    """The sig kernels against the plain composition at phase 2's four step calls (the
+    main path's shapes) and at the 5-delta 192x256 B=8 call."""
+    cases = sig_cases(device)
+    rows = {}
+    for label, names in (("phase-2 step, 4 calls", [f"phase2 s{s}" for s in range(4)]),
+                         ("5-delta 192x256 B=8", ["full_scales B=8"])):
+        calls = [(cases[n][0], cases[n][2], cases[n][3]) for n in names]
+        r = _time_sig(calls)
+        bf, by = sig_bound(calls, False)
+        bb, by_bwd = sig_bound(calls, True)
+        # forward+backward: the larger part names what bounds the pair
+        r.update(bound_fwd=bf, bound_bwd=bb, bound_by=by_bwd if bb >= bf else by)
+        rows[label] = r
+        print(f"time sig_l2, {label}: forward kernel {r['kernel_fwd']:.4f} ms, plain "
+              f"{r['plain_fwd']:.4f} ms, bound {bf:.5f} ms ({by}); forward+backward kernel "
+              f"{r['kernel_fwdbwd']:.4f} ms, plain {r['plain_fwdbwd']:.4f} ms, bound "
+              f"{bf + bb:.5f} ms ({r['bound_by']}) [{smi}]")
+    return rows
+
+
+def phase_split_times(device, smi: str) -> dict:
+    """ms/step of each phase's bf16 step with the sig kernel and with the plain
+    composition, in turns (plain, kernel, kernel, plain) on one state and batch; then
+    the launches a step of each from ``profile_step``."""
+    out = {}
+    for config in ("split_pair", "split_single"):
+        _, state, step, batch = profile_step.CONFIGS[config](None, None, None, device, "xla")
+        times = {"kernel": [], "plain": []}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            with plain_sig() if name == "plain" else contextlib.nullcontext():
+                times[name].append(time_ms(lambda: step(state, batch), 5))
+        for name, ts in times.items():
+            ms = sum(ts) / len(ts)
+            out[(config, name)] = {"ms": ms}
+            print(f"time training step bf16 {config} ({ST_HEIGHT}x{ST_WIDTH}, B={ST_BATCH}) "
+                  f"sig={name}: {ms:.2f} ms/step (turns {', '.join(f'{t:.2f}' for t in ts)})"
+                  f" [{smi}]")
+    for config in ("split_pair", "split_single"):
+        for name in ("kernel", "plain"):
+            prof = profile_step.profile(steps=1, device=device, config=config, sig=name,
+                                        top=0)
+            out[(config, name)].update(launches=prof["launches"],
+                                       kernel_ms=prof["kernel_ms"])
+    return out
+
+
 def reset_counts() -> None:
     fused_tail.launches = bilinear_sample.launches = 0
     smoothness_fused.launches = smoothness_fused.backward_launches = 0
+    sig_l2_fused.launches = sig_l2_fused.backward_launches = 0
 
 
 def read_counts() -> dict:
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return {"fused_tail": fused_tail.launches, "bilinear_sample": bilinear_sample.launches,
             "smoothness_fwd": smoothness_fused.launches,
-            "smoothness_bwd": smoothness_fused.backward_launches}
+            "smoothness_bwd": smoothness_fused.backward_launches,
+            "sig_fwd": sig_l2_fused.launches, "sig_bwd": sig_l2_fused.backward_launches}
 
 
 def main() -> None:
     t_start = time.perf_counter()
+
+    def stamp(label: str) -> None:
+        print(f"elapsed: {time.perf_counter() - t_start:.1f} s after {label}")
+
     info = phase_device()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
+    stamp("build")
     variables, meta = load_variables_npz(TEACHER)
     print(f"weights: {os.path.relpath(TEACHER, ROOT)} {meta}")
     folded = {dt: fold_weights(variables, dtype=dt, device="cuda")
@@ -845,11 +1206,15 @@ def main() -> None:
     print(f"serving launches: {serving}")
     if serving["fused_tail"] < 1:
         raise AssertionError("serving did not launch fused_tail")
+    stamp("serving")
 
     rows = phase_times(folded, info["smi"])
+    stamp("serving times")
     main_row = rows[(8, torch.bfloat16)]  # the serving path's shapes and dtype
     sample_errs = phase_sampler("cuda", info["smi"])
     smooth_errs = phase_smoothness("cuda", info["smi"])
+    sig_errs = phase_sig("cuda", info["smi"])
+    stamp("kernel checks")
 
     with tempfile.TemporaryDirectory() as tmp:
         dataset = write_dataset(tmp)
@@ -865,6 +1230,7 @@ def main() -> None:
                                  f"steps, not {LAUNCHES_PER_STEP} bilinear_sample and "
                                  f"{n_fwd} + {n_bwd} smoothness a step")
         batch = first_batch(dataset, "cuda")
+        stamp("config-4 training")
 
         reset_counts()  # a main path: config-2 training with validation
         c2 = phase_depth_only("cuda", dataset, smi=info["smi"])
@@ -876,11 +1242,31 @@ def main() -> None:
         if (depth_counts["smoothness_fwd"], depth_counts["smoothness_bwd"]) != want:
             raise AssertionError(f"config-2 training launched smoothness {depth_counts}, "
                                  f"not {want} (forward, backward)")
+        stamp("config-2 training")
+
+        # two main paths: split_training's phases, each between its own count resets
+        split = phase_split_training("cuda", os.path.join(tmp, "split"), smi=info["smi"])
+        for phase, (n_fwd, n_bwd) in SIG_PER_STEP.items():
+            got = split[phase]
+            print(f"split_training {phase} launches: {got} in {ST_STEPS} steps "
+                  f"[{info['smi']}]")
+            if (got["sig_fwd"], got["sig_bwd"]) != (n_fwd * ST_STEPS, n_bwd * ST_STEPS):
+                raise AssertionError(f"split_training {phase} launched sig {got}, not "
+                                     f"{n_fwd} + {n_bwd} a step")
+        stamp("split_training")
     phase_step_parity("cuda", batch, info["smi"])
+    stamp("config-4 step parity")
     srow = phase_sampler_times("cuda", info["smi"])
     phase_training_times("cuda", batch, info["smi"])
+    stamp("config-4 times")
     mrow = phase_smooth_times("cuda", info["smi"])
     phase_depth_only_times("cuda", info["smi"])
+    stamp("smoothness and config-2 times")
+    phase_split_parity("cuda", info["smi"])
+    stamp("split_training step parity")
+    sig_row = phase_sig_times("cuda", info["smi"])["phase-2 step, 4 calls"]
+    phase_split_times("cuda", info["smi"])
+    stamp("sig and split_training times")
 
     kernels = [{
         "name": "fused_tail", "route": "cuda",
@@ -910,6 +1296,18 @@ def main() -> None:
         "max_abs_err": smooth_errs["fwd"],
         "ms": mrow["kernel_fwdbwd"], "plain_ms": mrow["plain_fwdbwd"],
         "bound_ms": mrow["bound_fwd"] + mrow["bound_bwd"], "bound_by": mrow["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the same function
+    }, {
+        # forward and backward of phase 2's four calls a step (B=1, 192x256 down to 24x32,
+        # delta 2); launches: forward + backward calls in both phases' runs
+        "name": "sig_l2", "route": "cuda",
+        "source": "tf_depth_estimation_torch/csrc/sig_l2.cu",
+        "replaces": "tf_depth_estimation_tpu/ops/pallas_losses.py:63",
+        "launches": sum(split[p]["sig_fwd"] + split[p]["sig_bwd"] for p in SIG_PER_STEP),
+        "max_abs_err": sig_errs["fwd"],
+        "ms": sig_row["kernel_fwdbwd"], "plain_ms": sig_row["plain_fwdbwd"],
+        "bound_ms": sig_row["bound_fwd"] + sig_row["bound_bwd"],
+        "bound_by": sig_row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the same function
     }]
     print(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -58,6 +58,23 @@ def test_tf_conv_transpose_matches_jax(hw):
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("k", [4, 5, 7])
+def test_tf_conv_transpose_larger_kernels_match_jax(k):
+    """DepthPoseNet's explainability decoder has 5x5 and 7x7 transposed convs: the SAME
+    crop starts (k - 2) // 2 rows and columns in (ROADMAP Queue 3); a crop from 0, right
+    for 3x3, shifts the output by a pixel or two."""
+    x = _rand((2, 5, 7, 8), 5)
+    mod = JTFConvTranspose(features=6, kernel=(k, k))
+    variables = mod.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    ref = mod.apply(variables, jnp.asarray(x))
+    port = layers.TFConvTranspose(8, 6, k)
+    with torch.no_grad():
+        port.weight.copy_(torch.from_numpy(
+            np.array(variables["params"]["kernel"])).permute(3, 2, 0, 1))
+        got = port(_nchw(x))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref), **TOL)
+
+
 @pytest.mark.parametrize("transpose", [False, True])
 def test_slim_conv_eval_bn_matches_jax(transpose):
     """conv -> eval BN (eps 1e-3, no scale) -> ReLU with non-trivial running stats."""

@@ -2,10 +2,14 @@
 
 The JAX package beside it is the reference; this package imports neither JAX nor it. It
 serves depth4 DispNet (``infer.DepthPredictor`` and ``infer.fast_depth_forward`` over
-``models.DispNet``, with the decoder tail as the CUDA kernel ``csrc/fused_tail.cu``) and
+``models.DispNet``, with the decoder tail as the CUDA kernel ``csrc/fused_tail.cu``),
 trains BASELINE config 4, depth10_flow DispNet on joint depth and optical flow
 (``train.experiments.optflow_combine``, with the warps' bilinear sampler as the CUDA kernel
-``csrc/bilinear_sample.cu``).
+``csrc/bilinear_sample.cu``), trains BASELINE config 2, depth4 DispNet on supervised depth
+(``train.experiments.depth_only``, with the smoothness term as ``csrc/smoothness.cu``),
+and trains both phases of split_training, DepthPoseNet pairwise and then depth4 DispNet
+over [coarse depth | image] (``train.experiments.split_training``, with the
+scale-invariant-gradient loss as ``csrc/sig_l2.cu``).
 """
 from tf_depth_estimation_torch.infer import DepthPredictor, fast_depth_forward
 from tf_depth_estimation_torch.models import DispNet, DispNetVariant

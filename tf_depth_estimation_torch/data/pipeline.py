@@ -1,7 +1,9 @@
 """Threaded host batching and the copy to the device.
 
 ``BatchLoader`` is the port of ``tf_depth_estimation_tpu/data/pipeline.py:BatchLoader``
-(shuffled epochs, fixed batch size, remainder dropped, worker threads). ``device_prefetch``
+(shuffled epochs, fixed batch size, remainder dropped, worker threads), ``StreamLoader``
+that of its ``StreamLoader`` (an endless stream of ``dataset.sample(rng)`` draws, the
+DeMoN training input). ``device_prefetch``
 replaces the JAX package's ``jax.device_put`` double buffer: each batch is copied into
 pinned host memory and sent with a non-blocking copy on the current stream, ``size``
 batches ahead of the consumer, so the next batch's copy overlaps the current step.
@@ -84,6 +86,60 @@ class BatchLoader:
                     raise RuntimeError("BatchLoader worker failed") from item
                 else:
                     yield item
+        finally:
+            stop.set()
+            while any(t.is_alive() for t in workers):  # unblock producers stuck on put()
+                try:
+                    out_q.get_nowait()
+                except queue.Empty:
+                    pass
+                for t in workers:
+                    t.join(timeout=0.01)
+
+
+class StreamLoader:
+    """Endless batches of ``dataset.sample(rng)`` draws by ``num_workers`` threads, each
+    with its own ``RandomState`` seeded from (seed, worker) as in the JAX package on host
+    0, so a run with one worker is deterministic. A worker's failure is raised to the
+    consumer."""
+
+    def __init__(self, dataset, batch_size: int, seed: int = 0, num_workers: int = 2,
+                 queue_depth: int = 4):
+        if not hasattr(dataset, "sample"):
+            raise TypeError("StreamLoader needs a dataset with .sample(rng)")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.seed = seed
+        self.num_workers = num_workers
+        self.queue_depth = queue_depth
+
+    def __iter__(self) -> Iterator[dict]:
+        out_q: queue.Queue = queue.Queue(maxsize=self.queue_depth)
+        stop = threading.Event()
+
+        def producer(worker_id: int):
+            rng = np.random.RandomState((self.seed * 1000003 + worker_id) & 0x7FFFFFFF)
+            try:
+                while not stop.is_set():
+                    samples = []
+                    for _ in range(self.batch_size):
+                        if stop.is_set():
+                            return
+                        samples.append(self.dataset.sample(rng))
+                    out_q.put(BatchLoader._collate(samples))
+            except BaseException as e:  # hand it to the consumer instead of hanging it
+                out_q.put(e)
+
+        workers = [threading.Thread(target=producer, args=(w,), daemon=True)
+                   for w in range(self.num_workers)]
+        for t in workers:
+            t.start()
+        try:
+            while True:
+                item = out_q.get()
+                if isinstance(item, BaseException):
+                    raise RuntimeError("StreamLoader worker failed") from item
+                yield item
         finally:
             stop.set()
             while any(t.is_alive() for t in workers):  # unblock producers stuck on put()

@@ -1,5 +1,5 @@
-"""Synthetic colon pairs in the reference's on-disk format (port of the v1 scene family of
-``tf_depth_estimation_tpu/data/synthetic.py``).
+"""Synthetic colon pairs and DeMoN scenes in the reference's on-disk formats (port of the
+v1 scene family of ``tf_depth_estimation_tpu/data/synthetic.py``).
 
 A textured image with a smooth depth surface, a small known pose and a source view shifted
 to match; the losses only need the geometry to be consistent, which the GT warp
@@ -98,3 +98,33 @@ def write_colon_pair_dataset(root: str, num_frames: int = 8, H: int = 240, W: in
         with open(os.path.join(root, f"{s}.txt"), "w") as f:
             f.write("\n".join(lines) + "\n")
     return root
+
+
+def demon_record(rng, H: int, W: int):
+    """One raw DeMoN record of a ``make_pair_scene`` scene, as ``write_demon_h5`` stores it:
+    (``image_pair`` uint8 [H, W, 6], ``depth`` float32 [H, W], ``motion`` float32 [6]
+    [rotation vector | translation], ``intrinsics`` float32 [4] normalised fx fy cx cy)."""
+    tgt, src, depth, K, pose6 = make_pair_scene(rng, H, W)
+    pair = np.concatenate([tgt, src], axis=-1).astype(np.uint8)
+    motion = np.concatenate([pose6[3:], pose6[:3]]).astype(np.float32)
+    intr = np.array([K[0, 0] / W, K[1, 1] / H, K[0, 2] / W, K[1, 2] / H], np.float32)
+    return pair, depth, motion, intr
+
+
+def write_demon_h5(path: str, num_scenes: int = 8, H: int = 192, W: int = 256,
+                   seed: int = 0) -> str:
+    """Write the flat DeMoN HDF5 schema that ``data/demon.py:DemonDataset`` reads: groups
+    ``scene0000``.. with ``image_pair``, ``depth`` (gzip), ``motion`` and
+    ``intrinsics``."""
+    import h5py
+
+    rng = np.random.RandomState(seed)
+    with h5py.File(path, "w") as f:
+        for i in range(num_scenes):
+            pair, depth, motion, intr = demon_record(rng, H, W)
+            g = f.create_group(f"scene{i:04d}")
+            g.create_dataset("image_pair", data=pair, compression="gzip")
+            g.create_dataset("depth", data=depth, compression="gzip")
+            g.create_dataset("motion", data=motion)
+            g.create_dataset("intrinsics", data=intr)
+    return path

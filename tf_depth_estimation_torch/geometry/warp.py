@@ -1,9 +1,10 @@
-"""Differentiable warps: projective inverse warp, flow warp, flow from coordinates.
+"""Differentiable warps: projective inverse warp, flow warp, flow from coordinates and
+the left/right depth consistency.
 
 The port of ``tf_depth_estimation_tpu/geometry/warp.py`` (ref ``utils_lr.py:222-274,
-472-489``) for ``fmt="matrix"``; the Euler and angle-axis pose formats need
-``geometry/pose.py`` and ``rotations.py``, which come with the pairwise slice. Images and
-flows are NHWC, as in the JAX package.
+369-458, 472-489``), with the pose as a 4x4 matrix (``fmt="matrix"``) or a 6-vector in the
+Euler or angle-axis format (``geometry/pose.py``). Images and flows are NHWC, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from tf_depth_estimation_torch.geometry.camera import (
     pixel_grid,
     pixel_to_cam,
 )
+from tf_depth_estimation_torch.geometry.pose import pose_vec_to_mat
 from tf_depth_estimation_torch.geometry.sampling import bilinear_sample
 
 
@@ -33,12 +35,11 @@ def projective_inverse_warp(img: torch.Tensor, depth: torch.Tensor, pose: torch.
                             intrinsics: torch.Tensor, fmt: str = "euler",
                             sampler: str = "xla") -> WarpResult:
     """Inverse-warp ``img`` [B, H, W, C] (source view) into the target frame given the
-    target ``depth`` [B, H, W], ``pose`` [B, 4, 4] and ``intrinsics`` [B, 3, 3]."""
+    target ``depth`` [B, H, W], ``pose`` ([B, 6] for ``fmt`` "euler" or "angleaxis",
+    [B, 4, 4] for "matrix") and ``intrinsics`` [B, 3, 3]."""
     if fmt in ("euler", "eular", "angleaxis"):
-        raise NotImplementedError(
-            f"pose format {fmt!r} needs geometry/pose.py, which the port brings with the "
-            "pairwise (depth_then_cam) slice; this slice warps with fmt='matrix'")
-    if fmt != "matrix":
+        pose = pose_vec_to_mat(pose, fmt)
+    elif fmt != "matrix":
         raise ValueError(f"unknown pose format: {fmt}")
     cam_coords = pixel_to_cam(depth, intrinsics)
     proj = matmul_f32(pad_intrinsics_4x4(intrinsics), pose)
@@ -66,3 +67,17 @@ def flow_from_coords(src_coords: torch.Tensor):
     grid = pixel_grid(H, W, homogeneous=False, device=src_coords.device)
     return (src_coords[..., 0:1] - grid[0][None, ..., None],
             src_coords[..., 1:2] - grid[1][None, ..., None])
+
+
+def resample_depth(src_depth: torch.Tensor, coords: torch.Tensor,
+                   sampler: str = "xla") -> torch.Tensor:
+    """Bilinear-sample an (inverse) depth map [B, H, W, 1] of the other view at the warped
+    ``coords`` [B, H, W, 2]."""
+    return bilinear_sample(src_depth, coords, sampler=sampler)[0]
+
+
+def consistent_depth_error(src_depth: torch.Tensor, pred_src_depth: torch.Tensor,
+                           coords: torch.Tensor, sampler: str = "xla") -> torch.Tensor:
+    """|pred_src_depth - sample(src_depth, coords)|, the left/right depth consistency
+    (ref ``consistent_depth_loss``, ``utils_lr.py:369-458``)."""
+    return (pred_src_depth - resample_depth(src_depth, coords, sampler=sampler)).abs()

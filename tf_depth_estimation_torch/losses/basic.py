@@ -24,3 +24,18 @@ def si_log_rmse(label: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
     still counts; kept as it is for parity."""
     d = torch.log(label) - torch.log(pred)
     return torch.sqrt((d * d).mean() + d.mean() ** 2)
+
+
+def reference_explain_mask(batch: int, height: int, width: int, scale: int,
+                           device=None) -> torch.Tensor:
+    """The all-(0, 1) target of the explainability regulariser at ``scale``
+    (``my_losses.py:14-23``): [B, H/2^s, W/2^s, 2]."""
+    h, w = int(height / 2**scale), int(width / 2**scale)
+    return torch.tensor([0.0, 1.0], device=device).expand(batch, h, w, 2)
+
+
+def explain_reg_loss(logits: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Softmax cross-entropy of [..., 2] mask logits against ``ref``
+    (``my_losses.py:39-43``)."""
+    logp = torch.log_softmax(logits.reshape(-1, 2), -1)
+    return -(ref.reshape(-1, 2) * logp).sum(-1).mean()

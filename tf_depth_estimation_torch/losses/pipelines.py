@@ -2,31 +2,55 @@
 
 Each mirrors one reference loss graph, takes the predictions and the batch (NHWC, as in
 the JAX package) and returns ``(total, components)``. Ported so far: ``depth_only_loss``
-and ``depth_only_val_loss`` (BASELINE config 2) and ``optflow_combine_loss`` (config 4);
+and ``depth_only_val_loss`` (BASELINE config 2), ``optflow_combine_loss`` (config 4), and
+``pairwise_depth_loss`` and ``single_depth_loss`` (the two phases of ``split_training``);
 the others come with their experiments. Every smoothness term goes through
-``ops/smoothness.py:smoothness_fused``, the CUDA kernels on the GPU and the plain term on
-the CPU.
+``ops/smoothness.py:smoothness_fused`` and every sig term through
+``ops/sig_l2.py:sig_l2_fused``: the CUDA kernels on the GPU, the plain versions on the
+CPU.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
+from tf_depth_estimation_torch.geometry.pose import invert_transform, pose_vec_to_mat
 from tf_depth_estimation_torch.geometry.warp import (
+    consistent_depth_error,
     flow_from_coords,
     flow_warp,
     projective_inverse_warp,
 )
-from tf_depth_estimation_torch.losses.basic import si_log_rmse
+from tf_depth_estimation_torch.losses.basic import (
+    explain_reg_loss,
+    reference_explain_mask,
+    si_log_rmse,
+)
 from tf_depth_estimation_torch.losses.config import LossWeights
+from tf_depth_estimation_torch.ops.nonfinite import replace_nonfinite
 from tf_depth_estimation_torch.ops.resize import resize_area
+from tf_depth_estimation_torch.ops.schedules import ease_out_quad
+from tf_depth_estimation_torch.ops.sig_l2 import sig_l2_fused
 from tf_depth_estimation_torch.ops.smoothness import smoothness_fused
+
+_SIG_EPS = 1e-6
 
 
 def _area(x: torch.Tensor, hw) -> torch.Tensor:
     """TF1 ``resize_area`` of an NHWC tensor, returned contiguous NHWC."""
     return resize_area(x.permute(0, 3, 1, 2), hw).permute(0, 2, 3, 1).contiguous()
+
+
+def _sig_loss(pred: torch.Tensor, gt: torch.Tensor, deltas: Sequence[int]) -> torch.Tensor:
+    """sig-image L2 between prediction and GT (ref ``my_losses.py:78-82``), through the
+    kernel's wrapper."""
+    return sig_l2_fused(pred, gt, deltas, 0.001, _SIG_EPS)
+
+
+def _sig_ramp(step: int, w: LossWeights) -> float:
+    """The sig weight, eased in over the first third of ``max_steps``."""
+    return ease_out_quad(step, 0.0, w.depth_sig_weight, float(w.max_steps // 3))
 
 
 def depth_only_loss(pred_depths: Sequence[torch.Tensor], label: torch.Tensor,
@@ -99,3 +123,114 @@ def optflow_combine_loss(image_left: torch.Tensor, image_right: torch.Tensor,
     total = depth_loss + smooth_loss + optflow_loss + pixel_loss
     return total, {"total": total, "depth": depth_loss, "smooth": smooth_loss,
                    "optflow": optflow_loss, "pixel": pixel_loss}
+
+
+def single_depth_loss(pred_depths: Sequence[torch.Tensor], label: torch.Tensor, step: int,
+                      w: LossWeights, sig_deltas: Sequence[int] = (2,)):
+    """``compute_loss_single_depth`` (``my_losses.py:46-96``), split_training's phase 2:
+    per scale a guarded L1 to the area-resized label and the ramped sig loss. The
+    reference comments its smoothness term out; it stays 0."""
+    depth_loss = sig_loss = smooth_loss = 0.0
+    sig_w = _sig_ramp(step, w)
+    for s in range(w.num_scales):
+        curr_label = _area(label, w.scale_hw(s))
+        sig_loss += sig_w * _sig_loss(pred_depths[s], curr_label, sig_deltas)
+        diff = replace_nonfinite(curr_label - pred_depths[s])
+        depth_loss += diff.abs().mean() * w.depth_weight / 2**s
+    total = depth_loss + smooth_loss + sig_loss
+    return total, {"total": total, "depth": depth_loss, "sig": sig_loss,
+                   "smooth": smooth_loss}
+
+
+def pairwise_depth_loss(image_left: torch.Tensor, image_right: torch.Tensor,
+                        pred_depth_left: Sequence[torch.Tensor],
+                        pred_poses_right: torch.Tensor,
+                        pred_exp_logits_left: Optional[Sequence[torch.Tensor]],
+                        pred_depth_right: Sequence[torch.Tensor],
+                        pred_poses_left: torch.Tensor,
+                        pred_exp_logits_right: Optional[Sequence[torch.Tensor]],
+                        gt_right_cam: torch.Tensor, intrinsics: torch.Tensor,
+                        label: torch.Tensor, step: int, w: LossWeights, *,
+                        full_scales: bool = False):
+    """``compute_loss_pairwise_depth``, split_training's phase 1, in the JAX package's two
+    modes:
+
+    * default (``my_losses.py:101-313``): scales 2..S-1, a delta-2 sig term per scale,
+      predictions indexed ``s - 2`` (the truncated DepthPoseNet);
+    * ``full_scales`` (``my_losses_pairtest.py:92-294``): scales 0..S-1, one 5-delta sig
+      term at scale 0, predictions indexed ``s``.
+
+    Depth L1, the camera loss of the angle-axis poses in both directions and the ramped
+    sig loss always; the photometric, explainability and left/right consistency terms
+    gated on their weights as in JAX. ``gt_right_cam`` [B, 6] is [translation |
+    rotation]; ``intrinsics`` [B, S, 3, 3]; the warps take ``w.sampler``."""
+    depth_loss = pixel_loss = exp_loss = consist_loss = sig_loss = 0.0
+    sig_w = _sig_ramp(step, w)
+    gt_l2r = pose_vec_to_mat(gt_right_cam, "angleaxis")
+    gt_r2l = invert_transform(gt_l2r)
+    proj_l2r = pose_vec_to_mat(pred_poses_right[:, 0, :], "angleaxis")
+    proj_r2l = pose_vec_to_mat(pred_poses_left[:, 0, :], "angleaxis")
+    # rotation Frobenius and translation L2, both directions (my_losses.py:165-168)
+    cam_loss = (((gt_l2r[:, :3, :3] - proj_l2r[:, :3, :3]) ** 2).mean() * w.cam_weight_rot
+                + ((gt_r2l[:, :3, :3] - proj_r2l[:, :3, :3]) ** 2).mean() * w.cam_weight_rot
+                + ((gt_l2r[:, :3, 3] - proj_l2r[:, :3, 3]) ** 2).mean() * w.cam_weight_tran
+                + ((gt_r2l[:, :3, 3] - proj_r2l[:, :3, 3]) ** 2).mean() * w.cam_weight_tran)
+
+    if full_scales:
+        scales, offset = range(w.num_scales), 0
+        sig_loss += sig_w * _sig_loss(pred_depth_left[0], label, (1, 2, 4, 8, 16))
+    else:
+        scales, offset = range(2, w.num_scales), 2
+
+    for s in scales:
+        k = s - offset
+        hw = w.scale_hw(s)
+        curr_label = _area(label, hw)
+        curr_left = _area(image_left, hw)
+        curr_right = _area(image_right, hw)
+        if not full_scales:
+            sig_loss += sig_w * _sig_loss(pred_depth_left[k], curr_label, (2,))
+        diff = replace_nonfinite(curr_label - pred_depth_left[k])
+        depth_loss += diff.abs().mean() * w.depth_weight / 2**s
+
+        # the reference builds both warps at every scale; the terms below are gated
+        warp_left = projective_inverse_warp(curr_right, 1.0 / curr_label[..., 0], gt_l2r,
+                                            intrinsics[:, s], fmt="matrix",
+                                            sampler=w.sampler)
+        warp_right = projective_inverse_warp(curr_left, 1.0 / pred_depth_right[k][..., 0],
+                                             gt_r2l, intrinsics[:, s], fmt="matrix",
+                                             sampler=w.sampler)
+        if w.data_weight > 0 or w.explain_reg_weight > 0 or w.depth_weight_consist > 0:
+            exp_l = exp_r = None
+            if pred_exp_logits_left is not None:
+                logits_l = pred_exp_logits_left[k][..., :2]
+                logits_r = pred_exp_logits_right[k][..., :2]
+                if w.explain_reg_weight > 0:
+                    ref_mask = reference_explain_mask(image_left.shape[0], w.height,
+                                                      w.width, s, device=logits_l.device)
+                    exp_loss += w.explain_reg_weight * explain_reg_loss(logits_l, ref_mask)
+                    exp_loss += w.explain_reg_weight * explain_reg_loss(logits_r, ref_mask)
+                exp_l = torch.softmax(logits_l, -1)[..., 1:2]
+                exp_r = torch.softmax(logits_r, -1)[..., 1:2]
+            if w.data_weight > 0:
+                err_left = (warp_left.image - curr_left).abs()
+                err_right = (warp_right.image - curr_right).abs()
+                pixel_loss += (err_left * (exp_l if exp_l is not None else 1.0)).mean() \
+                    * w.data_weight / 2**s
+                pixel_loss += (err_right * (exp_r if exp_r is not None else 1.0)).mean() \
+                    * w.data_weight / 2**s
+            if w.depth_weight_consist > 0 and exp_l is not None:
+                # left/right inverse-depth consistency (my_losses.py:286-294)
+                r_err = consistent_depth_error(1.0 / pred_depth_right[k],
+                                               warp_left.warped_depth, warp_left.coords,
+                                               sampler=w.sampler)
+                l_err = consistent_depth_error(1.0 / pred_depth_left[k],
+                                               warp_right.warped_depth, warp_right.coords,
+                                               sampler=w.sampler)
+                consist_loss += (r_err * exp_l).mean() * w.depth_weight_consist
+                consist_loss += (l_err * exp_r).mean() * w.depth_weight_consist
+
+    total = depth_loss + cam_loss + pixel_loss + consist_loss + sig_loss + exp_loss
+    return total, {"total": total, "depth": depth_loss, "cam": cam_loss,
+                   "pixel": pixel_loss, "consist": consist_loss, "sig": sig_loss,
+                   "exp": exp_loss}

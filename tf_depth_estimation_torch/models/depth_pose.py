@@ -1,0 +1,147 @@
+"""Joint depth, camera-pose and explainability network as an ``nn.Module`` (NCHW inside).
+
+Mirrors ``tf_depth_estimation_tpu/models/depth_pose.py:DepthPoseNet``, the reference's
+``depth_net`` of the pairwise experiments: the truncated-decoder variant
+(``nets_optflow_depth.py:151-276``, ``full_resolution=False``) and the full-resolution one
+(``nets_optflow_depth_pairtest.py:151-276``). A shared encoder cnv1..cnv6b feeds a pose
+head (a stride-2 conv and a 1x1 linear conv, the UNSCALED mean over its pixels), an
+explainability decoder from cnv5b, and a depth decoder through cnv7 whose heads are
+``disp_scaling * sigmoid + min_disp``. The layers are the module's direct children, named
+as the flax module's, so the state dict's keys are the JAX tree's paths
+(``weights.py``). ``PoseExpNet`` comes with a later slice.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from tf_depth_estimation_torch.models.layers import SlimConv, TFConv2d
+from tf_depth_estimation_torch.ops.resize import resize_bilinear, resize_like
+
+# (name, in, out, kernel, stride) of the encoder
+ENCODER = (("cnv1", 6, 32, 7, 2), ("cnv1b", 32, 32, 7, 1), ("cnv2", 32, 64, 5, 2),
+           ("cnv2b", 64, 64, 5, 1), ("cnv3", 64, 128, 3, 2), ("cnv3b", 128, 128, 3, 1),
+           ("cnv4", 128, 256, 3, 2), ("cnv4b", 256, 256, 3, 1), ("cnv5", 256, 512, 3, 2),
+           ("cnv5b", 512, 512, 3, 1), ("cnv6", 512, 512, 3, 2), ("cnv6b", 512, 512, 3, 1))
+# depth decoder levels 7..4: (deconv in, deconv out); the iconv takes out + skip channels
+DEPTH_LEVELS = ((7, 512, 512), (6, 512, 512), (5, 512, 256), (4, 256, 128))
+
+
+class DepthPoseNet(nn.Module):
+    """``forward(image_pair [B, 6, H, W])`` returns ``(disps, pose, masks)``, float32:
+
+    * truncated: ``disps = [disp3, disp4]`` (1/4 and 1/8 resolution, [B, 1, h, w]),
+      ``masks = [mask3, mask4]`` ([B, 2 * num_source, h, w] logits);
+    * full resolution: ``disps = [disp1 .. disp4]``, ``masks = [mask1 .. mask4]``;
+    * ``pose`` [B, num_source, 6].
+
+    ``dtype`` is the compute dtype as in ``DispNet``: the input and every layer's weights
+    are cast to it, parameters and batch-norm statistics stay float32, the heads are cast
+    to float32 before their sigmoid or mean, as the flax module does.
+    """
+
+    def __init__(self, full_resolution: bool = False, num_source: int = 1,
+                 disp_scaling: float = 4.0, min_disp: float = 0.0,
+                 bn_momentum: float = 0.99, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.full_resolution = full_resolution
+        self.num_source = num_source
+        self.disp_scaling, self.min_disp = disp_scaling, min_disp
+        self.dtype = dtype
+        g, m = generator, bn_momentum
+
+        def conv(name, cin, cout, k, s=1):
+            self.add_module(name, SlimConv(cin, cout, k, s, generator=g, bn_momentum=m))
+
+        def deconv(name, cin, cout, k):
+            self.add_module(name, SlimConv(cin, cout, k, 2, transpose=True, generator=g,
+                                           bn_momentum=m))
+
+        def head(name, cin, cout, k):
+            self.add_module(name, TFConv2d(cin, cout, k, bias=True, generator=g))
+
+        for name, cin, cout, k, s in ENCODER:
+            conv(name, cin, cout, k, s)
+        conv("pose_cam_cnv7", 512, 256, 3, 2)
+        head("pose_pred", 256, 6 * num_source, 1)
+        deconv("exp_upcnv5", 512, 256, 3)
+        deconv("exp_upcnv4", 256, 128, 3)
+        head("mask4", 128, 2 * num_source, 3)
+        deconv("exp_upcnv3", 128, 64, 3)
+        head("mask3", 64, 2 * num_source, 3)
+        if full_resolution:
+            deconv("exp_upcnv2", 64, 32, 5)
+            head("mask2", 32, 2 * num_source, 5)
+            deconv("exp_upcnv1", 32, 16, 7)
+            head("mask1", 16, 2 * num_source, 7)
+        conv("cnv7", 512, 512, 3, 2)
+        conv("cnv7b", 512, 512, 3)
+        for lvl, cin, cout in DEPTH_LEVELS:
+            deconv(f"upcnv{lvl}", cin, cout, 3)
+            conv(f"icnv{lvl}", 2 * cout, cout, 3)
+        head("disp4", 128, 1, 3)
+        deconv("upcnv3", 128, 64, 3)
+        conv("icnv3", 64 + 64 + 1, 64, 3)
+        head("disp3", 64, 1, 3)
+        if full_resolution:
+            deconv("upcnv2", 64, 32, 3)
+            conv("icnv2", 32 + 32 + 1, 32, 3)
+            head("disp2", 32, 1, 3)
+            deconv("upcnv1", 32, 16, 3)
+            conv("icnv1", 16 + 1, 16, 3)
+            head("disp1", 16, 1, 3)
+
+    def _linear(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        return self.get_submodule(name)(x).float()
+
+    def _disp(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        return self.disp_scaling * torch.sigmoid(self._linear(name, x)) + self.min_disp
+
+    def forward(self, image_pair: torch.Tensor
+                ) -> Tuple[List[torch.Tensor], torch.Tensor, List[torch.Tensor]]:
+        H, W = image_pair.shape[-2:]
+        layer = self.get_submodule
+        x = image_pair.to(self.dtype)
+        skips = {}
+        for name, *_ in ENCODER:
+            x = layer(name)(x)
+            skips[name] = x
+        cnv6b = skips["cnv6b"]
+
+        cam = layer("pose_cam_cnv7")(cnv6b)
+        pose = self._linear("pose_pred", cam).mean((2, 3)).reshape(-1, self.num_source, 6)
+
+        e4 = layer("exp_upcnv4")(layer("exp_upcnv5")(skips["cnv5b"]))
+        mask4 = self._linear("mask4", e4)
+        e3 = layer("exp_upcnv3")(e4)
+        masks = [self._linear("mask3", e3), mask4]
+        if self.full_resolution:
+            e2 = layer("exp_upcnv2")(e3)
+            e1 = layer("exp_upcnv1")(e2)
+            masks = [self._linear("mask1", e1), self._linear("mask2", e2)] + masks
+
+        x = layer("cnv7b")(layer("cnv7")(cnv6b))
+        for lvl, skip in ((7, "cnv6b"), (6, "cnv5b"), (5, "cnv4b"), (4, "cnv3b")):
+            up = resize_like(layer(f"upcnv{lvl}")(x), skips[skip])
+            x = layer(f"icnv{lvl}")(torch.cat([up, skips[skip]], 1))
+        disp4 = self._disp("disp4", x)
+        disp4_up = resize_bilinear(disp4, (H // 4, W // 4)).to(self.dtype)
+        up = resize_like(layer("upcnv3")(x), skips["cnv2b"])
+        x = layer("icnv3")(torch.cat([up, skips["cnv2b"], disp4_up], 1))
+        disp3 = self._disp("disp3", x)
+        if not self.full_resolution:
+            return [disp3, disp4], pose, masks
+
+        disp3_up = resize_bilinear(disp3, (H // 2, W // 2)).to(self.dtype)
+        up = resize_like(layer("upcnv2")(x), skips["cnv1b"])
+        x = layer("icnv2")(torch.cat([up, skips["cnv1b"], disp3_up], 1))
+        disp2 = self._disp("disp2", x)
+        disp2_up = resize_bilinear(disp2, (H, W))
+        up = layer("upcnv1")(x)
+        if tuple(up.shape[-2:]) != (H, W):
+            up = resize_like(up, disp2_up)
+        x = layer("icnv1")(torch.cat([up, disp2_up.to(self.dtype)], 1))
+        return [self._disp("disp1", x), disp2, disp3, disp4], pose, masks

@@ -71,20 +71,22 @@ class DispNet(nn.Module):
     """``forward`` returns ``[d1, d2, d3, d4]`` (and for depth10_flow ``+ [f1, f2, f3,
     f4]``, 2-channel flows), float32 NCHW, full resolution first.
 
-    ``dtype`` is the compute dtype: the image and every layer's weights are cast to it,
+    ``in_channels`` is the input's: 3 for an image, 4 for split_training's phase 2
+    ([coarse depth | image]). ``dtype`` is the compute dtype: the image and every layer's
+    weights are cast to it,
     the parameters stay float32, the batch-norm statistics are float32 and the heads are
     cast to float32, as the JAX module does with ``DispNet(dtype=bfloat16)``.
     """
 
     def __init__(self, variant: Optional[DispNetVariant] = None,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, in_channels: int = 3):
         super().__init__()
         self.variant = variant or DispNetVariant.depth4()
         self.dtype = dtype
         g, m = generator, self.variant.bn_momentum
         self.encoder = nn.ModuleDict()
-        cin = 3
+        cin = in_channels
         for i, (feat, k) in enumerate(ENC, start=1):
             self.encoder[f"cnv{i}"] = SlimConv(cin, feat, k, 2, generator=g, bn_momentum=m)
             self.encoder[f"cnv{i}b"] = SlimConv(feat, feat, k, 1, generator=g,
@@ -122,7 +124,8 @@ class DispNet(nn.Module):
         return [head(x, 1), d2, d3, d4]
 
     def forward(self, image: torch.Tensor) -> List[torch.Tensor]:
-        """image: [B, 3, H, W], any float dtype; it is cast to the compute dtype."""
+        """image: [B, in_channels, H, W], any float dtype; it is cast to the compute
+        dtype."""
         v = self.variant
         hw = image.shape[-2:]
         x = image.to(self.dtype)

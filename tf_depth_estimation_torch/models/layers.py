@@ -9,9 +9,11 @@ differ from PyTorch's own layers and are written out here:
   at the bottom and right (7x7/s2 pads 2 on top and 3 below), so ``padding=k//2`` would
   shift every output.
 * ``tf.nn.conv2d_transpose`` SAME with a ``[kh, kw, out, in]`` kernel is the adjoint of a
-  TF SAME conv; as ``conv_transpose2d`` it has no padding and the trailing
-  ``kernel - stride`` rows and columns cropped. Its kernel needs no flip, only the axes
-  permuted to ``[in, out, kh, kw]``.
+  TF SAME conv; as ``conv_transpose2d`` it has no padding, and of the ``kernel - stride``
+  extra rows (columns) it crops ``(kernel - stride) // 2`` at the top (left), the SAME
+  conv's leading pad, and the rest at the bottom (right): 0 and 1 for DispNet's 3x3
+  kernels, 1 and 2 for a 5x5 and 2 and 3 for a 7x7 (DepthPoseNet's explainability
+  decoder). Its kernel needs no flip, only the axes permuted to ``[in, out, kh, kw]``.
 
 Parameters stay float32; a layer computes in its input's dtype and casts its weights to
 it, as flax does with ``dtype=bfloat16`` and ``param_dtype=float32``.
@@ -48,7 +50,8 @@ def conv_transpose2d_same(x: torch.Tensor, w: torch.Tensor,
     """``tf.nn.conv2d_transpose`` SAME: output ``stride * input``. w: [Ci, Co, kh, kw]."""
     H, W = x.shape[-2:]
     y = F.conv_transpose2d(x, w, bias, stride)
-    return y[..., : stride * H, : stride * W]
+    top, left = max(w.shape[-2] - stride, 0) // 2, max(w.shape[-1] - stride, 0) // 2
+    return y[..., top: top + stride * H, left: left + stride * W]
 
 
 def _glorot(shape, fan_in: int, fan_out: int, generator):

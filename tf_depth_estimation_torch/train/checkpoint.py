@@ -1,10 +1,14 @@
 """Checkpoints of the PyTorch port: flat ``.npz`` weights plus the optimizer state.
 
-``CheckpointManager(directory).save(step, state)`` writes ``model-<step>.npz``, the
-``{params, batch_stats}`` tree in the serving format of ``utils/npz.py`` (which the JAX
-package's ``load_variables_npz`` reads), and ``model-<step>.opt.pt``, Adam's state for
-``--continue_train``. The newest ten steps are kept, as the JAX package's manager keeps. The JAX package's orbax
-directories are not ported.
+``CheckpointManager(directory, group).save(step, state)`` writes ``<group>-<step>.npz``,
+the ``{params, batch_stats}`` tree in the serving format of ``utils/npz.py`` (which the
+JAX package's ``load_variables_npz`` reads), stored rather than deflated, and
+``<group>-<step>.opt.pt``, Adam's state and the step for ``--continue_train``. The group
+names the model, as the JAX package's named checkpoint groups do
+(``train/checkpoint.py``): ``model`` by default, and ``model_pairdepth`` and
+``model_singledepth`` for split_training's two phases (``split_training.py:147,338``).
+The newest ten steps of a group are kept, as the JAX package's manager keeps. The JAX
+package's orbax directories are not ported.
 """
 from __future__ import annotations
 
@@ -23,16 +27,17 @@ MAX_TO_KEEP = 10
 
 
 class CheckpointManager:
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, group: str = "model"):
         self.directory = os.path.abspath(directory)
+        self.group = group
         os.makedirs(self.directory, exist_ok=True)
 
     def weights_path(self, step: int) -> str:
-        return os.path.join(self.directory, f"model-{step}.npz")
+        return os.path.join(self.directory, f"{self.group}-{step}.npz")
 
     def steps(self) -> List[int]:
-        found = (re.fullmatch(r"model-(\d+)\.npz", os.path.basename(p))
-                 for p in glob.glob(os.path.join(self.directory, "model-*.npz")))
+        found = (re.fullmatch(rf"{re.escape(self.group)}-(\d+)\.npz", os.path.basename(p))
+                 for p in glob.glob(os.path.join(self.directory, f"{self.group}-*.npz")))
         return sorted(int(m.group(1)) for m in found if m)
 
     def latest_step(self) -> Optional[int]:

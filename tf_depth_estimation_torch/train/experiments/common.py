@@ -2,10 +2,13 @@
 from __future__ import annotations
 
 import argparse
+import glob
+import os
 
 import torch
 
-from tf_depth_estimation_torch.data.pipeline import BatchLoader, device_prefetch
+from tf_depth_estimation_torch.data.demon import DemonDataset, DemonReaderParams
+from tf_depth_estimation_torch.data.pipeline import BatchLoader, StreamLoader, device_prefetch
 from tf_depth_estimation_torch.train.checkpoint import CheckpointManager
 from tf_depth_estimation_torch.train.loop import MetricLogger
 
@@ -13,7 +16,8 @@ from tf_depth_estimation_torch.train.loop import MetricLogger
 # ignoring them
 NOT_PORTED = {
     "native_loader": "the C++ loader (native/) is bound by a later slice",
-    "demon_v1": "the DeMoN v1 reader comes with the DeMoN slice",
+    "demon_v1": "the classic DeMoN v1 archive reader (data/demon_v1.py) is not ported; "
+                "convert the archives to the flat schema with the JAX package",
     "tensorboard": "TensorBoard summaries are not ported; metrics go to metrics.jsonl",
     "rich_summaries": "image and histogram summaries are not ported",
 }
@@ -67,9 +71,36 @@ def pair_loader(args, ds, batch_size: int):
     return device_prefetch(iter(loader), args.device)
 
 
-def setup_run(args, state):
-    """Checkpoint manager + logger, and the resume of ``--continue_train``."""
-    mgr = CheckpointManager(args.checkpoint_dir)
+def demon_sources(dataset_dir: str):
+    """Weighted HDF5 sources of ``Demon_Data_loader.py:69-74``; any ``*.h5`` of weight 1
+    when none of the reference's files is there (synthetic or converted data)."""
+    pats = [("sun3d_train*.h5", 0.8), ("rgbd_*_train.h5", 0.2), ("mvs_breisach.h5", 0.3),
+            ("mvs_citywall.h5", 0.3), ("scenes11_train.h5", 0.2)]
+    sources = [(path, wgt) for pat, wgt in pats
+               for path in sorted(glob.glob(os.path.join(dataset_dir, pat)))]
+    if not sources:
+        sources = [(p, 1.0) for p in sorted(glob.glob(os.path.join(dataset_dir, "*.h5")))]
+    if not sources:
+        raise FileNotFoundError(f"no HDF5 sources under {dataset_dir}")
+    return sources
+
+
+def demon_loader(args, height: int, width: int, test_phase: bool = False):
+    """DeMoN batches on ``args.device``, two in flight: the scene-pool stream of
+    ``StreamLoader`` for training, the sources in order for the test phase."""
+    params = DemonReaderParams(batch_size=args.batch_size, scaled_height=height,
+                               scaled_width=width, test_phase=test_phase)
+    ds = DemonDataset(demon_sources(args.dataset_dir), params, seed=args.seed)
+    if test_phase:
+        loader = BatchLoader(ds, args.batch_size, seed=args.seed, shuffle=False)
+    else:
+        loader = StreamLoader(ds, args.batch_size, seed=args.seed)
+    return device_prefetch(iter(loader), args.device)
+
+
+def setup_run(args, state, group: str = "model"):
+    """Checkpoint manager of ``group`` + logger, and the resume of ``--continue_train``."""
+    mgr = CheckpointManager(args.checkpoint_dir, group)
     logger = MetricLogger(args.checkpoint_dir)
     if args.continue_train and mgr.latest_step() is not None:
         state = mgr.restore(state)

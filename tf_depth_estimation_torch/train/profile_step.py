@@ -2,16 +2,18 @@
 device time summed by kernel and by kind of work.
 
     python -m tf_depth_estimation_torch.train.profile_step [--config optflow_combine]
-        [--steps 3] [--sampler pallas] [--smoothness kernel]
+        [--steps 3] [--sampler pallas] [--smoothness kernel] [--sig kernel]
 
-``--config optflow_combine`` (BASELINE config 4: depth10_flow, 224x480) or ``depth_only``
-(config 2: depth4, 240x720), bf16, batch 10, as the CLIs train. ``--smoothness plain``
-routes the smoothness terms to the plain version for the measurement, as a yardstick for
-the kernels (the port itself always runs them). The batch is synthetic
-(``data/synthetic.py:make_pair_scene``, on the device before the window), the weights
-random from seed 0. Prints the top kernels, the share
-of each kind, the steps' wall time and the device's busy share (kernel time over wall
-time; overlapping kernels count twice, so it is an upper bound).
+``--config optflow_combine`` (BASELINE config 4: depth10_flow, 224x480, batch 10),
+``depth_only`` (config 2: depth4, 240x720, batch 10), ``split_pair`` (split_training's
+phase 1: the truncated DepthPoseNet on a DeMoN pair, 192x256, batch 1) or
+``split_single`` (its phase 2: depth4 DispNet over [coarse depth | image], 192x256, batch
+1), bf16, as the CLIs train. ``--smoothness plain`` and ``--sig plain`` route those loss
+terms to their plain versions for the measurement, as a yardstick for the kernels (the
+port itself always runs them). The batch is synthetic (``data/synthetic.py``'s scenes, on
+the device before the window), the weights random from seed 0. Prints the top kernels,
+the share of each kind, the steps' wall time and the device's busy share (kernel time over
+wall time; overlapping kernels count twice, so it is an upper bound).
 """
 from __future__ import annotations
 
@@ -24,24 +26,27 @@ import time
 import numpy as np
 import torch
 
-from tf_depth_estimation_torch.data.synthetic import make_pair_scene, pose_matrix
+from tf_depth_estimation_torch.data.demon import DemonReaderParams, augment, preprocess
+from tf_depth_estimation_torch.data.pipeline import BatchLoader, to_device
+from tf_depth_estimation_torch.data.synthetic import demon_record, make_pair_scene, pose_matrix
 from tf_depth_estimation_torch.losses import pipelines
 from tf_depth_estimation_torch.losses.basic import second_order_smoothness
 from tf_depth_estimation_torch.losses.config import LossWeights
+from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
 from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
+from tf_depth_estimation_torch.ops.sig import sig_l2_plain
+from tf_depth_estimation_torch.train.experiments.split_training import single_batches
 from tf_depth_estimation_torch.train.state import create_train_state
-from tf_depth_estimation_torch.train.steps import make_depth_only_step, make_optflow_combine_step
-
-# config -> (model variant, LossWeights table, step factory)
-CONFIGS = {
-    "optflow_combine": (DispNetVariant.depth10_flow, LossWeights.optflow_combine,
-                        make_optflow_combine_step),
-    "depth_only": (DispNetVariant.depth4, LossWeights.depth_only, make_depth_only_step),
-}
+from tf_depth_estimation_torch.train.steps import (
+    make_depth_only_step,
+    make_optflow_combine_step,
+    make_pairwise_step,
+    make_single_depth_step,
+)
 
 # kernel-name fragments -> kind of work, first match wins
 KINDS = (("bilinear_sample", "bilinear_sample kernel"), ("smooth_", "smoothness kernels"),
-         ("conv", "convolution"),
+         ("sig_", "sig kernels"), ("conv", "convolution"),
          ("gemm", "convolution"), ("xmma", "convolution"), ("cudnn", "convolution"),
          ("wgrad", "convolution"), ("dgrad", "convolution"), ("multi_tensor", "adam"),
          ("reduce", "reduction"), ("gather", "gather/scatter"),
@@ -61,12 +66,25 @@ def plain_smoothness():
         pipelines.smoothness_fused = saved
 
 
+@contextlib.contextmanager
+def plain_sig():
+    """Within the block the loss pipelines compute their sig terms with the plain
+    composition instead of ``sig_l2_fused``: a yardstick for measurements only."""
+    saved = pipelines.sig_l2_fused
+    pipelines.sig_l2_fused = sig_l2_plain
+    try:
+        yield
+    finally:
+        pipelines.sig_l2_fused = saved
+
+
 def kind_of(name: str) -> str:
     low = name.lower()
     return next((k for frag, k in KINDS if frag in low), "other")
 
 
 def pair_batch(batch: int, height: int, width: int, seed: int, device) -> dict:
+    """A colon-pair batch (configs 2 and 4) of ``make_pair_scene`` scenes."""
     rng = np.random.RandomState(seed)
     tgt, src, depth, K, pose6 = (np.stack(a) for a in zip(
         *[make_pair_scene(rng, height, width) for _ in range(batch)]))
@@ -81,29 +99,77 @@ def pair_batch(batch: int, height: int, width: int, seed: int, device) -> dict:
             for k, v in arrays.items()}
 
 
-def profile(steps: int = 3, sampler: str = "pallas", device="cuda", batch: int = 10,
+def demon_batch(batch: int, height: int, width: int, rng: np.random.RandomState,
+                device) -> dict:
+    """A DeMoN batch (split_training) of ``make_pair_scene`` scenes, each drawn from
+    ``rng``, augmented and preprocessed as ``data/demon.py:DemonDataset.sample`` does its
+    records (the records ``data/synthetic.py:write_demon_h5`` would store)."""
+    params = DemonReaderParams(batch_size=batch, scaled_height=height, scaled_width=width)
+    samples = [preprocess(params, *augment(params, *demon_record(rng, height, width), rng))
+               for _ in range(batch)]
+    return to_device(BatchLoader._collate(samples), device)
+
+
+def _dispnet_setup(variant, table, make_step, default_batch=10):
+    def setup(batch, height, width, device, sampler):
+        w = table()
+        w = dataclasses.replace(w, height=height or w.height, width=width or w.width,
+                                **({"sampler": sampler} if variant().flow_decoder else {}))
+        model = DispNet(variant(), generator=torch.Generator().manual_seed(0),
+                        dtype=torch.bfloat16).to(device)
+        data = pair_batch(batch or default_batch, w.height, w.width, 0, device)
+        return w, create_train_state(model), make_step(w), data
+    return setup
+
+
+def _split_setup(phase: str):
+    def setup(batch, height, width, device, sampler):
+        w = LossWeights.split_training()
+        w = dataclasses.replace(w, height=height or w.height, width=width or w.width)
+        data = demon_batch(batch or 1, w.height, w.width, np.random.RandomState(0), device)
+        pair = DepthPoseNet(generator=torch.Generator().manual_seed(0),
+                            dtype=torch.bfloat16).to(device)
+        if phase == "pair":
+            return w, create_train_state(pair), make_pairwise_step(w), data
+        model = DispNet(DispNetVariant.depth4(), in_channels=4, dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0)).to(device)
+        data = next(single_batches(pair, iter([data])))
+        return w, create_train_state(model), make_single_depth_step(w), data
+    return setup
+
+
+# config -> setup(batch, height, width, device, sampler) -> (LossWeights, TrainState, step,
+# batch); a batch, height or width of None takes the configuration's own
+CONFIGS = {
+    "optflow_combine": _dispnet_setup(DispNetVariant.depth10_flow, LossWeights.optflow_combine,
+                                      make_optflow_combine_step),
+    "depth_only": _dispnet_setup(DispNetVariant.depth4, LossWeights.depth_only,
+                                 make_depth_only_step),
+    "split_pair": _split_setup("pair"),
+    "split_single": _split_setup("single"),
+}
+
+
+def profile(steps: int = 3, sampler: str = "pallas", device="cuda", batch: int = None,
             height: int = None, width: int = None, top: int = 25,
-            config: str = "optflow_combine", smoothness: str = "kernel") -> dict:
+            config: str = "optflow_combine", smoothness: str = "kernel",
+            sig: str = "kernel") -> dict:
     """Profile ``steps`` bf16 steps of ``config`` after 2 warm-up steps, at the config's
-    size unless ``height`` and ``width`` are given; prints the table and returns
-    ``{"wall_ms", "kernel_ms", "launches", "kinds"}`` per step. ``sampler`` picks config
-    4's warp sampler, ``smoothness`` the kernels or the plain version."""
-    variant, table, make_step = CONFIGS[config]
-    w = table()
-    w = dataclasses.replace(w, height=height or w.height, width=width or w.width,
-                            **({"sampler": sampler} if config == "optflow_combine" else {}))
-    height, width = w.height, w.width
-    model = DispNet(variant(), generator=torch.Generator().manual_seed(0),
-                    dtype=torch.bfloat16).to(device)
-    state = create_train_state(model)
-    step = make_step(w)
-    data = pair_batch(batch, height, width, 0, device)
+    batch and size unless given; prints the table and returns ``{"wall_ms", "kernel_ms",
+    "launches", "kinds"}`` per step. ``sampler`` picks config 4's warp sampler,
+    ``smoothness`` and ``sig`` the kernels or the plain versions."""
+    w, state, step, data = CONFIGS[config](batch, height, width, device, sampler)
+    batch = next(iter(data.values())).shape[0]
     cuda = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with plain_smoothness() if smoothness == "plain" else contextlib.nullcontext():
+    with contextlib.ExitStack() as plain:
+        if smoothness == "plain":
+            plain.enter_context(plain_smoothness())
+        if sig == "plain":
+            plain.enter_context(plain_sig())
         for _ in range(2):
             step(state, data)
         sync()
@@ -123,8 +189,8 @@ def profile(steps: int = 3, sampler: str = "pallas", device="cuda", batch: int =
         by_name[e.name][1] += 1
     busy = sum(t for t, _ in by_name.values())
     what = (f"sampler={sampler}, " if config == "optflow_combine" else "") \
-        + f"smoothness={smoothness}, "
-    print(f"profile: {config}, bfloat16, {height}x{width}, batch {batch}, {what}"
+        + f"smoothness={smoothness}, sig={sig}, "
+    print(f"profile: {config}, bfloat16, {w.height}x{w.width}, batch {batch}, {what}"
           f"{steps} steps: wall {wall_us / steps / 1e3:.2f} ms/step (profiler on), kernel "
           f"time {busy / steps / 1e3:.2f} ms/step, busy share {busy / wall_us:.1%}, "
           f"{len(kernels) // steps} kernel launches/step")
@@ -147,12 +213,13 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--sampler", default="pallas", choices=["pallas", "xla"])
     p.add_argument("--smoothness", default="kernel", choices=["kernel", "plain"])
+    p.add_argument("--sig", default="kernel", choices=["kernel", "plain"])
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     return profile(args.steps, args.sampler, args.device, config=args.config,
-                   smoothness=args.smoothness)
+                   smoothness=args.smoothness, sig=args.sig)
 
 
 if __name__ == "__main__":

@@ -7,11 +7,13 @@ updated in place. ``torch.optim.Adam(betas=(beta1, 0.999), eps=1e-8)`` computes 
 ``adam`` update, ``lr * m_hat / (sqrt(v_hat) + eps)`` with ``m_hat = m / (1 - b1^t)`` and
 ``v_hat = v / (1 - b2^t)`` (torch divides ``sqrt(v)`` by ``sqrt(1 - b2^t)`` and ``lr`` by
 ``1 - b1^t``, the same quantity; ``tests/test_torch_train.py`` checks it against optax).
+A state with an ``lr_schedule`` sets Adam's learning rate to ``lr_schedule(step)`` before
+each update, as optax evaluates a schedule at the count of updates made so far.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -29,6 +31,13 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    lr_schedule: Optional[Callable[[int], float]] = None
+
+    def set_learning_rate(self) -> None:
+        """Adam's learning rate for the update at ``step``, from ``lr_schedule``."""
+        if self.lr_schedule is not None:
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr_schedule(self.step)
 
     def variables(self) -> Dict[str, Any]:
         """The JAX variables tree ``{"params", "batch_stats"}`` as float32 numpy."""
@@ -40,8 +49,9 @@ class TrainState:
         self.model.load_state_dict(sd, strict=True)
 
 
-def create_train_state(model: nn.Module, learning_rate: float = 2e-4,
-                       beta1: float = 0.9) -> TrainState:
+def create_train_state(model: nn.Module, learning_rate: float = 2e-4, beta1: float = 0.9,
+                       lr_schedule: Optional[Callable[[int], float]] = None) -> TrainState:
     """Adam over ``model``'s parameters, step 0; ``model`` is used as given (its init and
-    device)."""
-    return TrainState(model, adam(model.parameters(), learning_rate, beta1))
+    device). With ``lr_schedule`` (step -> learning rate) the constant is not used."""
+    return TrainState(model, adam(model.parameters(), learning_rate, beta1),
+                      lr_schedule=lr_schedule)

@@ -2,7 +2,8 @@
 
 A step runs the forward in train mode (which moves the batch-norm running statistics),
 the loss, the backward and the Adam update, and returns ``(state, metrics)`` with the state
-updated in place and the metrics as detached 0-d tensors (reading them syncs the device).
+updated in place and the metrics as detached 0-d float32 tensors (reading them syncs the
+device).
 A validation step runs the eval-mode forward (running statistics) without gradients and
 returns the metrics alone.
 """
@@ -17,6 +18,8 @@ from tf_depth_estimation_torch.losses.pipelines import (
     depth_only_loss,
     depth_only_val_loss,
     optflow_combine_loss,
+    pairwise_depth_loss,
+    single_depth_loss,
 )
 from tf_depth_estimation_torch.train.state import TrainState
 
@@ -29,9 +32,12 @@ def _apply(state: TrainState, total: torch.Tensor, comps: dict):
     """Backward and Adam update; the detached metrics."""
     state.optimizer.zero_grad(set_to_none=True)
     total.backward()
+    state.set_learning_rate()
     state.optimizer.step()
     state.step += 1
-    return state, {k: v.detach() for k, v in comps.items()}
+    # a gated-off term stays the Python 0.0 it started as
+    return state, {k: torch.as_tensor(v, dtype=torch.float32, device=total.device).detach()
+                   for k, v in comps.items()}
 
 
 def make_depth_only_step(w: LossWeights):
@@ -77,6 +83,46 @@ def make_optflow_combine_step(w: LossWeights):
             batch["tgt_image"], batch["src_image"], depths, [f[..., 0:1] for f in flows],
             [f[..., 1:2] for f in flows], batch["label"], batch["tgt2src_projs"][:, 0],
             batch["intrinsics"], w)
+        return _apply(state, total, comps)
+
+    return step
+
+
+def make_pairwise_step(w: LossWeights, full_scales: bool = False):
+    """split_training phase 1 (``split_training.py:209-417``): DepthPoseNet on (L | R) and
+    on (R | L), sharing its parameters; ``pairwise_depth_loss``. The running statistics
+    move in both forwards, so the second pass's win, as in JAX's step. Batch keys:
+    ``image_pair`` [B, H, W, 6], ``rotation`` and ``translation`` [B, 3] (the GT camera
+    is [translation | rotation]), ``intrinsics`` [B, S, 3, 3], and the label ``depth2``
+    [B, H/4, W/4, 1] (``depth0`` [B, H, W, 1] under ``full_scales``)."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.train()
+        pair = batch["image_pair"]
+        left, right = pair[..., :3], pair[..., 3:]
+        d_l, pose_r, exp_l = state.model(pair.permute(0, 3, 1, 2))
+        d_r, pose_l, exp_r = state.model(torch.cat([right, left], -1).permute(0, 3, 1, 2))
+        gt_cam = torch.cat([batch["translation"], batch["rotation"]], -1)
+        label = batch["depth0"] if full_scales else batch["depth2"]
+        total, comps = pairwise_depth_loss(
+            left, right, [_nhwc(d) for d in d_l], pose_r, [_nhwc(e) for e in exp_l],
+            [_nhwc(d) for d in d_r], pose_l, [_nhwc(e) for e in exp_r], gt_cam,
+            batch["intrinsics"], label, state.step, w, full_scales=full_scales)
+        return _apply(state, total, comps)
+
+    return step
+
+
+def make_single_depth_step(w: LossWeights):
+    """split_training phase 2 (``split_training.py:110-147``): depth4 DispNet over
+    ``input`` [B, H, W, 4] ([coarse pair depth | image]); ``single_depth_loss`` against
+    ``label`` [B, H, W, 1], its sig weight ramped by the state's step."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.train()
+        outs = state.model(batch["input"].permute(0, 3, 1, 2))
+        total, comps = single_depth_loss([_nhwc(d) for d in outs], batch["label"],
+                                         state.step, w)
         return _apply(state, total, comps)
 
     return step

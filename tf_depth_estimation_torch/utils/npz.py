@@ -45,7 +45,9 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
 
 
 def save_variables_npz(path: str, variables: Dict[str, Any], **meta: str) -> None:
-    """Write serving variables (``{'params': ..., 'batch_stats': ...}``) as one .npz.
+    """Write serving variables (``{'params': ..., 'batch_stats': ...}``) as one .npz,
+    stored, not deflated: deflate barely shrinks float32 weights and costs seconds a save
+    at DepthPoseNet's and DispNet's ~30 M parameters (``np.load`` reads either).
 
     ``meta`` keys are stored under ``__meta_<name>`` and returned by
     :func:`load_variables_npz`.
@@ -54,7 +56,7 @@ def save_variables_npz(path: str, variables: Dict[str, Any], **meta: str) -> Non
     for name, value in meta.items():
         flat[f"__meta_{name}"] = np.asarray(str(value))
     flat["__collections"] = np.asarray(",".join(sorted(variables)))
-    np.savez_compressed(path, **flat)
+    np.savez(path, **flat)
 
 
 def load_variables_npz(path: str) -> Tuple[Dict[str, Any], Dict[str, str]]:
