@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, check and time the CUDA kernels,
 serve depth4 DispNet at 576x384 with the committed teacher weights, train config 4
 (depth10_flow, joint depth + optical flow) at 224x480, train config 2 (depth4, supervised
-depth with in-loop validation) at 240x720, and train both phases of split_training
-(DepthPoseNet pairwise, then depth4 over [coarse depth | image]) at 192x256.
+depth with in-loop validation) at 240x720, train both phases of split_training
+(DepthPoseNet pairwise, then depth4 over [coarse depth | image]) at 192x256, train config 3
+(the full-resolution DepthPoseNet, self-supervised depth and pose) at 192x256, run the eval
+harness's two nets and serve DepthPoseNet pairs.
 
     python3 chip_smoke.py
 
@@ -50,10 +52,12 @@ Phases, each raising on failure:
      bf16 config-2 step with the kernels and with the plain term, in turns;
  14. kernel vs plain: ``sig_l2_fused`` (forward, and backward for pred and gt) against
      the plain composition (``ops/sig.py``) at phase 2's four scales (B=1, 192x256 down
-     to 24x32, delta 2), the 5-delta ``full_scales`` call at 192x256 (B=1 and B=8), a
-     coarse map where the deltas reach past the map, an odd 37x53 map and a strided C=1
-     plane: the forward within rtol 1e-5 of the float32 and the float64 plain version,
-     the backward within 1e-6 of autograd of the plain version and equal, bit for bit, to
+     to 24x32, delta 2), the 5-delta ``full_scales`` call at 192x256 (B=1 and B=8), the
+     eval harness's calls at B=16 (phase 20's shapes: the pair net's 5-delta call at
+     192x256, the single net's delta-2 calls at four scales), a coarse map where the
+     deltas reach past the map, an odd 37x53 map and a strided C=1 plane: the forward
+     within rtol 1e-5 of the float32 and the float64 plain version, the backward within
+     1e-6 of autograd of the plain version and equal, bit for bit, to
      ``sig_l2_backward_reference``, and the same bits in two runs;
  15. training, two main paths: split_training's phase 1 (the truncated DepthPoseNet
      pairwise) and phase 2 (depth4 DispNet over [coarse depth | image]), bf16, batch 1,
@@ -69,10 +73,37 @@ Phases, each raising on failure:
      backward, at phase 2's four step calls and at the 5-delta 192x256 B=8 call; ms/step
      of each phase's bf16 step with the kernel and with the plain version, in turns; and
      launches a step of each phase from ``train/profile_step.py``.
+ 18. kernel vs plain: ``bilinear_sample_fused`` against ``bilinear_sample_reference`` at
+     config 3's four scale shapes (B=16, 192x256 down to 24x32, C=3) with the coords of a
+     real Euler warp, a 16x24 image at 24x16 coords, taps past every border, NaN and
+     infinite coords, and B=10 (outside JAX's rule: the sampler kernel launches instead):
+     out and wmask bit-equal (their largest difference printed and reported), dcoords
+     and dimgs within bilinear_sample's limit of autograd of the plain version, the same
+     bits twice;
+ 19. training, a main path: config 3 (``train/experiments/depth_then_cam.py``, the
+     full-resolution DepthPoseNet, bf16, batch 16, 192x256) for 5 steps through the CLI's
+     ``train``, the launch counts read before each batch is taken (each step 4 forward and
+     4 backward fused sampler launches, 4 + 4 smoothness, no sampler kernel launch and no
+     plain sampling); every loss component finite; the checkpoint read back;
+ 20. evaluation, two main paths: the eval harness's ``--net pair`` (config 3's checkpoint
+     as the pair net) and ``--net single`` through its functions on 2 batches of 16 at
+     192x256, the sig launches counted (1 and 4 a batch);
+ 21. serving, two main paths: ``PairPredictor`` (bf16, the folded forward of
+     ``infer/fast_pose.py``) on 16 pairs at 192x256 from config 3's full-resolution
+     checkpoint, and from split_training's truncated phase-1 checkpoint (the net
+     ``infer/cli.py --mode pair`` serves), each against the f32 module forward at phase
+     5's limits; frames/s;
+ 22. step parity and times: one f32 config-3 step with the kernels against one with the
+     plain sampler and smoothness term, and the bf16 loss against the f32 one; the fused
+     kernels, the sampler kernel, the plain version, ``grid_sample`` and the bound over a
+     config-3 step's 4 calls, forward and forward + backward; ms/step of the bf16 step with
+     the fused and with the plain sampler, in turns of 5 steps; launches a step from
+     ``train/profile_step.py``.
 The GPU machine has no ``h5py``, so the smoke cannot write the DeMoN HDF5 files that the
-split_training CLI reads (``data/demon.py``): phase 15 feeds the CLI's phase functions
-batches of synthetic scenes, augmented and preprocessed by ``data/demon.py``'s own
-``augment`` and ``preprocess``; the CPU tests run the CLI on an HDF5 file.
+split_training and depth_then_cam CLIs read (``data/demon.py``): phases 15 and 19 feed the
+CLIs' train functions batches of synthetic scenes, augmented and preprocessed by
+``data/demon.py``'s own ``augment`` and ``preprocess``; the CPU tests run the CLIs on an
+HDF5 file.
 The line before the last is one JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``. There is no CPU path: without CUDA it exits non-zero.
 TF32 is off throughout, so the float32 checks are float32 and not TF32.
@@ -87,7 +118,6 @@ import os
 import subprocess
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -98,7 +128,7 @@ from tf_depth_estimation_torch.data.pipeline import BatchLoader, to_device
 from tf_depth_estimation_torch.data.synthetic import write_colon_pair_dataset
 from tf_depth_estimation_torch.geometry.warp import projective_inverse_warp
 from tf_depth_estimation_torch.infer.fast import fast_depth_forward, fold_weights, folded_forward
-from tf_depth_estimation_torch.infer.predictor import DepthPredictor
+from tf_depth_estimation_torch.infer.predictor import DepthPredictor, PairPredictor
 from tf_depth_estimation_torch.losses.config import LossWeights
 from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
 from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
@@ -107,6 +137,7 @@ from tf_depth_estimation_torch.ops.bilinear_sample import (
     bilinear_sample,
     bilinear_sample_reference,
 )
+from tf_depth_estimation_torch.ops.bilinear_sample_fused import bilinear_sample_fused
 from tf_depth_estimation_torch.ops.fused_tail import (
     N_PARAMS,
     fused_tail,
@@ -121,16 +152,23 @@ from tf_depth_estimation_torch.ops.smoothness import (
     smoothness_fused,
 )
 from tf_depth_estimation_torch.train import profile_step
-from tf_depth_estimation_torch.train.experiments import depth_only, optflow_combine, split_training
+from tf_depth_estimation_torch.train.experiments import (
+    depth_only,
+    depth_then_cam,
+    eval_harness,
+    optflow_combine,
+    split_training,
+)
 from tf_depth_estimation_torch.train.profile_step import demon_batch, plain_sig, plain_smoothness
 from tf_depth_estimation_torch.train.state import create_train_state
 from tf_depth_estimation_torch.train.steps import (
     make_depth_only_step,
+    make_depth_then_cam_step,
     make_optflow_combine_step,
     make_pairwise_step,
     make_single_depth_step,
 )
-from tf_depth_estimation_torch.utils.npz import load_variables_npz
+from tf_depth_estimation_torch.utils.npz import load_variables_npz, save_variables_npz
 from tf_depth_estimation_torch.weights import depth_pose_from_variables, dispnet_from_variables
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -201,6 +239,17 @@ FULL_SCALE_DELTAS = (1, 2, 4, 8, 16)
 # the step at which the parity steps run: the sig weight ramps from 0 at step 0, so a
 # step-0 parity would multiply the sig term's gradient by 0
 PARITY_STEP = 1000
+# config 3, the sixth path (train/experiments/depth_then_cam.py defaults): the
+# full-resolution DepthPoseNet on DeMoN scenes at 192x256, batch 16, bf16; 5 steps
+C3_HEIGHT, C3_WIDTH, C3_BATCH, C3_STEPS = 192, 256, 16, 5
+# launches a config-3 step: one Euler warp per scale through the fused sampler, and one
+# smoothness term of 1/disp per scale; none of the sampler kernel, no plain sampling
+C3_PER_STEP = {"fused_fwd": 4, "fused_bwd": 4, "smoothness_fwd": 4, "smoothness_bwd": 4,
+               "bilinear_sample": 0, "plain_samples": 0}
+# the eval harness at config 3's size: batches, and sig_l2_fused forward launches a batch
+# (the 5-delta call at scale 0 for the pair net, delta 2 at 4 scales for the single net)
+EVAL_BATCHES = 2
+SIG_PER_EVAL_BATCH = {"pair": 1, "single": 4}
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32, PEAK_BF16, PEAK_HBM = 67e12, 989e12, 3.35e12
 
@@ -220,14 +269,10 @@ def phase_device() -> dict:
     return info
 
 
-KERNELS = ("fused_tail", "bilinear_sample", "smoothness", "sig_l2")
-
-
 def phase_build() -> None:
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as ex:   # one nvcc per source, all at once
-        entries = dict(zip(KERNELS, ex.map(_build.build, KERNELS)))
-    print(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s wall")
+    entries = _build.build_all()   # one nvcc per source, all at once
+    print(f"build: {len(entries)} kernels in {time.perf_counter() - t0:.2f} s wall")
     for name, entry in entries.items():
         print(f"build: {name}: nvcc {entry['seconds']:.2f} s wall")
         for line in entry["log"].splitlines():
@@ -569,29 +614,7 @@ def phase_step_parity(device, batch: dict, smi: str) -> dict:
                 config4_state(device, sd, dtype), batch)
         runs[name] = ({k: float(v) for k, v in metrics.items()},
                       {k: p.detach() for k, p in state.model.named_parameters()})
-        print(f"step parity {name}: " + ", ".join(f"{k} {v:.6f}"
-                                                  for k, v in runs[name][0].items()))
-    (lk, pk), (lp, pp), (lb, _) = runs["kernel"], runs["plain"], runs["kernel_bf16"]
-    loss_err = max(abs(lk[k] - lp[k]) / abs(lp[k]) for k in lp)
-    lr = 2e-4
-    off = total = 0
-    worst = 0.0
-    for k in pp:
-        diff = (pk[k] - pp[k]).abs()
-        worst = max(worst, diff.max().item())
-        off += int((diff > TOL_STEP["param_atol"]).sum())
-        total += diff.numel()
-    bf16_err = abs(lb["total"] - lp["total"]) / abs(lp["total"])
-    print(f"step parity f32, kernels vs plain sampler and smoothness: loss components rel err max "
-          f"{loss_err:.2e} (tolerance {TOL_STEP['loss_rtol']:.0e}); params after Adam: max "
-          f"abs diff {worst:.2e} (tolerance 2 lr = {2 * lr:.0e}), {off} of {total} "
-          f"({off / total:.4%}) beyond {TOL_STEP['param_atol']:.0e} (tolerance "
-          f"{TOL_STEP['param_share_off']:.0%}); bf16 step-1 total {lb['total']:.4f} vs f32 "
-          f"{lp['total']:.4f}, rel {bf16_err:.2e} (tolerance {TOL_BF16_LOSS}) [{smi}]")
-    if loss_err > TOL_STEP["loss_rtol"] or worst > 2 * lr * (1 + 1e-4) \
-            or off / total >= TOL_STEP["param_share_off"] or bf16_err > TOL_BF16_LOSS:
-        raise AssertionError("step parity beyond its tolerances")
-    return {"loss_rel_err": loss_err, "param_share_off": off / total, "bf16_rel": bf16_err}
+    return _compare_steps("config 4", runs, 2e-4, smi)
 
 
 def step_calls(device) -> list:
@@ -868,9 +891,11 @@ def phase_depth_only_times(device, smi: str) -> dict:
 def sig_cases(device) -> dict:
     """name -> (pred base, view, gt, deltas): ``view(base)`` is the [B, H, W, 1] prediction.
     Phase 2's four scales (B=1, delta 2), the 5-delta full_scales call at 192x256 (B=1 and
-    8), a coarse map that the longer deltas overreach, an odd size, and channel 1 of an
-    NCHW [B, 2, H, W] head viewed NHWC. Values as the heads and labels give: disparities in
-    (0, 4], inverse depths of 0.4 to 2.5 m."""
+    8), the eval harness's calls at config 3's size (B=16: the pair net's 5-delta call at
+    192x256, the single net's delta-2 calls at its four scales, each an NCHW [B, 1, H, W]
+    head viewed NHWC as the harness passes it), a coarse map that the longer deltas
+    overreach, an odd size, and channel 1 of an NCHW [B, 2, H, W] head viewed NHWC. Values
+    as the heads and labels give: disparities in (0, 4], inverse depths of 0.4 to 2.5 m."""
     g = np.random.RandomState(SEED + 8)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
     same = lambda x: x
@@ -884,6 +909,16 @@ def sig_cases(device) -> dict:
         add(f"phase2 s{s}", ST_BATCH, ST_HEIGHT >> s, ST_WIDTH >> s, (2,))
     add("full_scales B=1", 1, ST_HEIGHT, ST_WIDTH, FULL_SCALE_DELTAS)
     add("full_scales B=8", 8, ST_HEIGHT, ST_WIDTH, FULL_SCALE_DELTAS)
+    nchw = lambda x: x.permute(0, 2, 3, 1)
+
+    def add_head(name, B, H, W, deltas):
+        cases[name] = (t(g.uniform(0.05, 4, (B, 1, H, W))), nchw,
+                       t(1 / g.uniform(0.4, 2.5, (B, H, W, 1))), deltas)
+
+    add_head(f"eval pair B={C3_BATCH}", C3_BATCH, C3_HEIGHT, C3_WIDTH, FULL_SCALE_DELTAS)
+    for s in range(4):
+        add_head(f"eval single B={C3_BATCH} s{s}", C3_BATCH, C3_HEIGHT >> s, C3_WIDTH >> s,
+                 (2,))
     add("coarse 12x16", 2, 12, 16, FULL_SCALE_DELTAS)   # d = 16 >= H and >= W
     add("odd 37x53", 2, 37, 53, FULL_SCALE_DELTAS)
     head = t(g.uniform(0.05, 4, (2, 2, 48, 64)))
@@ -958,7 +993,9 @@ def phase_split_training(device, root: str, *, height: int = ST_HEIGHT,
     """split_training's two phases for ``steps`` steps each through the CLI's
     ``train_pair`` and ``train_single``, with the launch counts set to 0 before each phase
     and read after it; every loss component finite; both checkpoint groups read back
-    into DepthPoseNet and a 4-channel DispNet with finite eval forwards."""
+    into DepthPoseNet and a 4-channel DispNet with finite eval forwards. Returns the
+    launch counts of each phase, and phase 1's checkpoint (the truncated DepthPoseNet) as
+    ``pair_variables``."""
     pair_dir, single_dir = os.path.join(root, "pair"), os.path.join(root, "single")
     args = split_training.parse_args([
         "--checkpoint_dir", pair_dir, "--checkpoint_dir_single", single_dir,
@@ -1012,6 +1049,7 @@ def phase_split_training(device, root: str, *, height: int = ST_HEIGHT,
           f"component finite; {split_training.PAIR_GROUP}-{steps}.npz read back into "
           f"DepthPoseNet and {split_training.SINGLE_GROUP}-{steps}.npz into a 4-channel "
           f"DispNet(depth4), eval forwards finite [{smi}]")
+    out["pair_variables"] = pv
     return out
 
 
@@ -1053,34 +1091,15 @@ def phase_split_parity(device, smi: str) -> dict:
     sds = {"pair": pair_sd, "single": copy.deepcopy(DispNet(
         DispNetVariant.depth4(), in_channels=4,
         generator=torch.Generator().manual_seed(SEED)).state_dict())}
-    out, lr = {}, 2e-4
+    out = {}
     for phase in ("pair", "single"):
-        (lk, pk), (lp, pp), (lb, _) = (
+        kernel, plain, kernel_bf16 = (
             _parity_run(phase, sds[phase], batches[phase], device, dt, plain)
             for dt, plain in ((torch.float32, False), (torch.float32, True),
                               (torch.bfloat16, False)))
-        loss_err = max(_rel(lk[k], lp[k]) for k in lp)
-        off = total = 0
-        worst = 0.0
-        for k in pp:
-            diff = (pk[k] - pp[k]).abs()
-            worst = max(worst, diff.max().item())
-            off += int((diff > TOL_STEP["param_atol"]).sum())
-            total += diff.numel()
-        bf16_err = _rel(lb["total"], lp["total"])
-        print(f"step parity f32 split_training {phase} at step {PARITY_STEP}, sig kernel vs "
-              f"plain: " + ", ".join(f"{k} {lk[k]:.6f}/{lp[k]:.6f}" for k in lp)
-              + f"; loss components rel err max {loss_err:.2e} (tolerance "
-              f"{TOL_STEP['loss_rtol']:.0e}); params after Adam: max abs diff {worst:.2e} "
-              f"(tolerance 2 lr = {2 * lr:.0e}), {off} of {total} ({off / total:.4%}) "
-              f"beyond {TOL_STEP['param_atol']:.0e} (tolerance "
-              f"{TOL_STEP['param_share_off']:.0%}); bf16 total {lb['total']:.4f} vs f32 "
-              f"{lp['total']:.4f}, rel {bf16_err:.2e} (tolerance {TOL_BF16_LOSS}) [{smi}]")
-        if loss_err > TOL_STEP["loss_rtol"] or worst > 2 * lr * (1 + 1e-4) \
-                or off / total >= TOL_STEP["param_share_off"] or bf16_err > TOL_BF16_LOSS:
-            raise AssertionError(f"split_training {phase} step parity beyond its tolerances")
-        out[phase] = {"loss_rel_err": loss_err, "param_share_off": off / total,
-                      "bf16_rel": bf16_err}
+        out[phase] = _compare_steps(
+            f"split_training {phase} at step {PARITY_STEP}",
+            {"kernel": kernel, "plain": plain, "kernel_bf16": kernel_bf16}, 2e-4, smi)
     return out
 
 
@@ -1145,7 +1164,7 @@ def phase_split_times(device, smi: str) -> dict:
     the launches a step of each from ``profile_step``."""
     out = {}
     for config in ("split_pair", "split_single"):
-        _, state, step, batch = profile_step.CONFIGS[config](None, None, None, device, "xla")
+        _, state, step, batch = profile_step.CONFIGS[config](None, None, None, device, "kernel")
         times = {"kernel": [], "plain": []}
         for name in ("plain", "kernel", "kernel", "plain"):
             with plain_sig() if name == "plain" else contextlib.nullcontext():
@@ -1165,19 +1184,406 @@ def phase_split_times(device, smi: str) -> dict:
     return out
 
 
+def euler_warp_coords(B: int, H: int, W: int, device, seed: int) -> torch.Tensor:
+    """The coords of config 3's warp: a seeded depth in [0.8, 2.5], an Euler pose of up
+    to 5 cm and 0.02 rad, DeMoN-like intrinsics, through ``fmt="euler"``."""
+    g = np.random.RandomState(seed)
+    depth = torch.from_numpy(g.uniform(0.8, 2.5, (B, H, W)).astype(np.float32))
+    pose = torch.from_numpy(np.concatenate([g.uniform(-0.05, 0.05, (B, 3)),
+                                            g.uniform(-0.02, 0.02, (B, 3))], -1)
+                            .astype(np.float32))
+    K = torch.tensor([[0.89 * W, 0.0, W / 2], [0.0, 1.19 * H, H / 2], [0.0, 0.0, 1.0]])
+    img = torch.zeros((B, H, W, 1), device=device)
+    return projective_inverse_warp(img, depth.to(device), pose.to(device),
+                                   K.expand(B, 3, 3).contiguous().to(device),
+                                   fmt="euler").coords
+
+
+def fused_cases(device) -> dict:
+    """name -> (imgs in [0, 255], coords, eligible): config 3's four scale shapes (B=16,
+    C=3) with the coords of a real Euler warp, a 16x24 image at 24x16 coords (the same
+    product), halves and integers reaching past every border, NaN and infinite coords,
+    and B=10 (outside the rule)."""
+    g = np.random.RandomState(SEED + 20)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    cases = {}
+    for s in range(4):
+        h, w = C3_HEIGHT >> s, C3_WIDTH >> s
+        cases[f"config3 s{s}"] = (t(g.rand(C3_BATCH, h, w, 3) * 255),
+                                  euler_warp_coords(C3_BATCH, h, w, device, SEED + 21 + s),
+                                  True)
+    cases["same product 16x24 at 24x16"] = (t(g.rand(C3_BATCH, 16, 24, 3) * 255),
+                                            t(g.uniform(-3, 27, (C3_BATCH, 24, 16, 2))), True)
+    cases["past every border"] = (t(g.rand(8, 12, 20, 3) * 255), t(np.round(g.uniform(
+        [-2.5, -2.5], [22.5, 14.5], (8, 12, 20, 2)) * 2) / 2), True)
+    coords = g.uniform(-2, 14, (8, 12, 20, 2))
+    coords.reshape(-1)[g.choice(coords.size, 60, replace=False)] = np.repeat(
+        [np.nan, np.inf, -np.inf], 20)
+    cases["NaN and inf coords"] = (t(g.rand(8, 12, 20, 3) * 255), t(coords), True)
+    cases["B=10 (outside the rule)"] = (t(g.rand(10, 24, 32, 3) * 255),
+                                        euler_warp_coords(10, 24, 32, device, SEED + 25),
+                                        False)
+    return cases
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values, NaN where the other has NaN (NaN payloads aside)."""
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def phase_fused_sampler(device, smi: str) -> dict:
+    """bilinear_sample_fused vs the plain version on the card: the forward (out and wmask
+    bit-equal), the launches (the fused kernels, or the sampler kernel outside the rule),
+    dcoords and dimgs against autograd of the plain version, and the same bits twice."""
+    worst = {"out": 0.0, "wmask": 0.0, "dcoords": 0.0, "dimgs": 0.0}
+    for name, (imgs, coords, eligible) in fused_cases(device).items():
+        g = np.random.RandomState(SEED + 26)
+        dout = torch.from_numpy(g.randn(*coords.shape[:3], 3).astype(np.float32)).to(device)
+        dmask = torch.from_numpy(g.randn(*coords.shape[:3], 1).astype(np.float32)).to(device)
+        runs = []
+        for fn in (bilinear_sample_fused, bilinear_sample_fused, bilinear_sample_reference):
+            ti, tc = imgs.clone().requires_grad_(True), coords.clone().requires_grad_(True)
+            before = read_counts()
+            out, mask = fn(ti, tc)
+            torch.autograd.backward([out, mask], [dout, dmask])
+            after = read_counts()
+            if fn is bilinear_sample_fused:
+                got = (after["fused_fwd"] - before["fused_fwd"],
+                       after["fused_bwd"] - before["fused_bwd"],
+                       after["bilinear_sample"] - before["bilinear_sample"])
+                if got != ((1, 1, 0) if eligible else (0, 0, 1)):
+                    raise AssertionError(f"fused sampler {name}: launches (fused forward, "
+                                         f"fused backward, sampler kernel) {got}")
+            runs.append((out.detach(), mask.detach(), tc.grad, ti.grad))
+        (o1, m1, dc1, di1), (o2, m2, dc2, _), (ro, rm, rdc, rdi) = runs
+        if not (_same_bits(o1, o2) and _same_bits(m1, m2) and _same_bits(dc1, dc2)):
+            raise AssertionError(f"fused sampler {name}: two runs differ")
+        fwd_errs = {"out": (o1 - ro).abs().nan_to_num().max().item(),
+                    "wmask": (m1 - rm).abs().nan_to_num().max().item()}
+        if not (_same_bits(o1, ro) and _same_bits(m1, rm)):
+            raise AssertionError(f"fused sampler {name}: forward differs from the plain "
+                                 f"version by {fwd_errs} (out, wmask)")
+        for what, err in fwd_errs.items():
+            worst[what] = max(worst[what], err)
+        for what, a, r in (("dcoords", dc1, rdc), ("dimgs", di1, rdi)):
+            torch.testing.assert_close(a, r, equal_nan=True, **TOL_DCOORDS,
+                                       msg=lambda m: f"fused sampler {name} {what}: {m}")
+            err = (a - r).abs().nan_to_num().max().item()
+            worst[what] = max(worst[what], err)
+        print(f"kernel bilinear_sample_fused {name} {tuple(imgs.shape)} at "
+              f"{tuple(coords.shape)}: {'fused kernels' if eligible else 'sampler kernel'}; "
+              f"out and wmask bit-equal to the plain version (abs err {fwd_errs['out']:.1e}, "
+              f"{fwd_errs['wmask']:.1e}); dcoords abs err max "
+              f"{(dc1 - rdc).abs().nan_to_num().max().item():.3e}, dimgs "
+              f"{(di1 - rdi).abs().nan_to_num().max().item():.3e} vs autograd of the plain "
+              f"version (rtol {TOL_DCOORDS['rtol']:.0e}, atol {TOL_DCOORDS['atol']:.2e}); "
+              f"two runs bit-equal [{smi}]")
+    return worst
+
+
+def _counting(batches, log: list):
+    """``batches`` unchanged, the launch counts appended to ``log`` before each is taken
+    (so after each step but the last)."""
+    for b in batches:
+        log.append(read_counts(sync=False))
+        yield b
+
+
+def _per_step(log: list, end: dict) -> list:
+    marks = log[1:] + [end]
+    return [{k: b[k] - a[k] for k in a} for a, b in zip(log, marks)]
+
+
+def phase_depth_then_cam(device, root: str, *, height: int = C3_HEIGHT,
+                         width: int = C3_WIDTH, batch: int = C3_BATCH,
+                         steps: int = C3_STEPS, dtype: str = "bfloat16",
+                         smi: str = "") -> dict:
+    """Config 3 for ``steps`` steps through the CLI's ``train`` on synthetic DeMoN
+    batches, with the launch counts of each step; every loss component finite; the
+    checkpoint read back into the full-resolution DepthPoseNet with a finite eval
+    forward. Returns the per-step counts, the seconds and the checkpoint's variables."""
+    ckpt = os.path.join(root, "depth_then_cam")
+    args = depth_then_cam.parse_args([
+        "--checkpoint_dir", ckpt, "--image_height", str(height), "--image_width",
+        str(width), "--batch_size", str(batch), "--max_steps", str(steps),
+        "--summary_freq", "1", "--save_latest_freq", str(steps), "--dtype", dtype,
+        "--device", str(device), "--seed", str(SEED)])
+    log: list = []
+    t0 = time.perf_counter()
+    state, _ = depth_then_cam.train(args, depth_then_cam.loss_weights(args),
+                                    depth_then_cam.make_state(args),
+                                    _counting(demon_batches(batch, height, width, device), log))
+    per_step = _per_step(log, read_counts())
+    seconds = time.perf_counter() - t0
+    records = _records(ckpt, ("total", "pixel", "smooth", "exp"))
+    if state.step != steps or len(records) != steps:
+        raise AssertionError(f"depth_then_cam: step {state.step}, records {records}")
+    for r, n in zip(records, per_step):
+        print(f"depth_then_cam step {r['step']}: " + ", ".join(
+            f"{k} {r[k]:.4f}" for k in ("total", "pixel", "smooth", "exp"))
+            + f"; launches {n} [{smi}]")
+    variables, meta = load_variables_npz(os.path.join(ckpt, f"model-{steps}.npz"))
+    model = depth_pose_from_variables(variables, device=device)
+    x = next(demon_batches(batch, height, width, device, seed=SEED + 4))
+    with torch.no_grad():
+        disps, pose, masks = model(x["image_pair"].permute(0, 3, 1, 2))
+    shapes = [(batch, 1, height >> s, width >> s) for s in range(4)]
+    if not model.full_resolution or [tuple(d.shape) for d in disps] != shapes \
+            or not all(bool(torch.isfinite(o).all()) for o in (*disps, pose, *masks)):
+        raise AssertionError(f"depth_then_cam checkpoint step {meta.get('step')}: "
+                             f"{[tuple(d.shape) for d in disps]} or non-finite")
+    print(f"depth_then_cam: {steps} steps of config 3 ({dtype}, {height}x{width}, batch "
+          f"{batch}) through the CLI's train in {seconds:.1f} s host clock; every loss "
+          f"component finite; model-{steps}.npz read back into the full-resolution "
+          f"DepthPoseNet, eval forward finite [{smi}]")
+    return {"per_step": per_step, "seconds": seconds, "variables": variables}
+
+
+def _compare_steps(label: str, runs: dict, lr: float, smi: str) -> dict:
+    """Hold ``runs["kernel"]`` to ``runs["plain"]`` (one f32 step each: (metrics,
+    parameters)) and ``runs["kernel_bf16"]``'s total to the f32 one, at TOL_STEP and
+    TOL_BF16_LOSS."""
+    (lk, pk), (lp, pp), (lb, _) = runs["kernel"], runs["plain"], runs["kernel_bf16"]
+    loss_err = max(_rel(lk[k], lp[k]) for k in lp)
+    off = total = 0
+    worst = 0.0
+    for k in pp:
+        diff = (pk[k] - pp[k]).abs()
+        worst = max(worst, diff.max().item())
+        off += int((diff > TOL_STEP["param_atol"]).sum())
+        total += diff.numel()
+    bf16_err = _rel(lb["total"], lp["total"])
+    print(f"step parity f32 {label}, kernels vs plain: " + ", ".join(
+        f"{k} {lk[k]:.6f}/{lp[k]:.6f}" for k in lp)
+        + f"; loss components rel err max {loss_err:.2e} (tolerance "
+        f"{TOL_STEP['loss_rtol']:.0e}); params after Adam: max abs diff {worst:.2e} "
+        f"(tolerance 2 lr = {2 * lr:.0e}), {off} of {total} ({off / total:.4%}) beyond "
+        f"{TOL_STEP['param_atol']:.0e} (tolerance {TOL_STEP['param_share_off']:.0%}); bf16 "
+        f"total {lb['total']:.4f} vs f32 {lp['total']:.4f}, rel {bf16_err:.2e} "
+        f"(tolerance {TOL_BF16_LOSS}) [{smi}]")
+    if loss_err > TOL_STEP["loss_rtol"] or worst > 2 * lr * (1 + 1e-4) \
+            or off / total >= TOL_STEP["param_share_off"] or bf16_err > TOL_BF16_LOSS:
+        raise AssertionError(f"{label} step parity beyond its tolerances")
+    return {"loss_rel_err": loss_err, "param_share_off": off / total, "bf16_rel": bf16_err}
+
+
+def phase_depth_then_cam_parity(device, smi: str) -> dict:
+    """One f32 config-3 step with the kernels (fused sampler, smoothness) against one with
+    their plain versions, from one init and batch; the bf16 step's loss against the f32."""
+    batch = next(demon_batches(C3_BATCH, C3_HEIGHT, C3_WIDTH, device, seed=SEED + 5))
+    sd = copy.deepcopy(DepthPoseNet(full_resolution=True,
+                                    generator=torch.Generator().manual_seed(SEED)).state_dict())
+    w = dataclasses.replace(LossWeights.depth_then_cam(), height=C3_HEIGHT, width=C3_WIDTH)
+    runs = {}
+    for name, sampler, dtype in (("kernel", "fused", torch.float32),
+                                 ("plain", "xla", torch.float32),
+                                 ("kernel_bf16", "fused", torch.bfloat16)):
+        model = DepthPoseNet(full_resolution=True, dtype=dtype)
+        model.load_state_dict(sd)
+        state = create_train_state(model.to(device))
+        step = make_depth_then_cam_step(dataclasses.replace(w, sampler=sampler))
+        with plain_smoothness() if name == "plain" else contextlib.nullcontext():
+            state, metrics = step(state, batch)
+        runs[name] = ({k: float(v) for k, v in metrics.items()},
+                      {k: p.detach() for k, p in state.model.named_parameters()})
+    return _compare_steps("config 3", runs, 2e-4, smi)
+
+
+def phase_eval_harness(device, root: str, variables: dict, *, height: int = C3_HEIGHT,
+                       width: int = C3_WIDTH, batch: int = C3_BATCH,
+                       n: int = EVAL_BATCHES, dtype: str = "bfloat16",
+                       smi: str = "") -> dict:
+    """The eval harness's two nets through its functions on ``n`` batches of synthetic
+    DeMoN scenes, the pair net restored from ``variables`` (config 3's checkpoint, stored
+    as ``model_pairdepth``), the single net from its seeded init; the launch counts set to
+    0 before each net and read after. Returns net -> (means, counts)."""
+    pair_dir = os.path.join(root, "eval_pair")
+    os.makedirs(pair_dir, exist_ok=True)
+    save_variables_npz(os.path.join(pair_dir, f"{eval_harness.PAIR_GROUP}-1.npz"), variables)
+    out = {}
+    for net in ("pair", "single"):
+        args = eval_harness.parse_args([
+            "--net", net, "--checkpoint_dir", pair_dir, "--checkpoint_dir_single",
+            os.path.join(root, "eval_single"), "--image_height", str(height),
+            "--image_width", str(width), "--batch_size", str(batch), "--eval_batches",
+            str(n), "--dtype", dtype, "--device", str(device), "--seed", str(SEED)])
+        single = eval_harness.single_model(args) if net == "single" else None
+        fn = eval_harness.make_eval_fn(eval_harness.loss_weights(args),
+                                       eval_harness.pair_model(args), single)
+        t0 = time.perf_counter()
+        reset_counts()  # a main path: the eval harness, one net
+        means = eval_harness.evaluate(fn, demon_batches(batch, height, width, device,
+                                                        seed=SEED + 6), n)
+        counts = read_counts()
+        seconds = time.perf_counter() - t0
+        if not means or not all(np.isfinite(v) for v in means.values()):
+            raise AssertionError(f"eval harness --net {net}: {means}")
+        print(f"eval harness --net {net}: {n} batches of {batch} at {height}x{width} "
+              f"({dtype}) in {seconds:.2f} s host clock, every mean finite; sig launches "
+              f"{counts['sig_fwd']} + {counts['sig_bwd']} [{smi}]")
+        out[net] = (means, counts)
+    return out
+
+
+def phase_pair_serving(device, variables: dict, *, height: int = C3_HEIGHT,
+                       width: int = C3_WIDTH, batch: int = C3_BATCH,
+                       dtype: torch.dtype = torch.bfloat16, smi: str = "") -> dict:
+    """PairPredictor (``dtype``, the folded forward) over ``batch + 1`` frames (``batch``
+    pairs: the left images of synthetic DeMoN scenes) of the DepthPoseNet in
+    ``variables``: config 3's full-resolution checkpoint, or split_training's truncated
+    phase-1 checkpoint (the net ``infer/cli.py --mode pair`` serves), whose batch
+    statistics their steps moved; the depth and pose held against the f32 module forward
+    at TOL_SERVING; frames/s of ``4 * batch`` pairs of float32 frames, as the CLI reads
+    them."""
+    scenes = next(demon_batches(batch + 1, height, width, device, seed=SEED + 7))
+    frames = scenes["image_pair"][..., :3].cpu().numpy()
+    pairs = torch.from_numpy(np.concatenate([frames[:-1], frames[1:]], -1)).to(device)
+    model = depth_pose_from_variables(variables, device=device)
+    with torch.no_grad():
+        disps, pose, _ = model(pairs.permute(0, 3, 1, 2).float())
+    ref_z, ref_pose = disps[0][:, 0].cpu().numpy(), pose[:, 0].cpu().numpy()
+    full = model.full_resolution
+    net = "full-resolution" if full else "truncated"
+    pred = PairPredictor(variables["params"], variables["batch_stats"], height=height,
+                         width=width, full_resolution=full, batch_size=batch,
+                         dtype=dtype, device=device)
+    z, p = pred.predict_pairs(frames)
+    scale = 1 if full else 4
+    if not pred.uses_fast_path or z.shape != (batch, height // scale, width // scale) \
+            or p.shape != (batch, 6) or not (np.isfinite(z).all() and np.isfinite(p).all()):
+        raise AssertionError(f"pair serving {net}: fast path {pred.uses_fast_path}, shapes "
+                             f"{z.shape} {p.shape} or non-finite")
+    errs = {"depth": np.abs(z - ref_z), "pose": np.abs(p - ref_pose)}
+    for what, diff in errs.items():
+        if diff.max() > TOL_SERVING[0] or diff.mean() > TOL_SERVING[1]:
+            raise AssertionError(f"pair serving {net} {what}: abs err max {diff.max()}, "
+                                 f"mean {diff.mean()} to the f32 module forward beyond "
+                                 f"{TOL_SERVING}")
+    many = _frames(4 * batch + 1, height, width, seed=SEED + 9).astype(np.float32)
+    pred.predict_pairs(many)                       # warm-up
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred.predict_pairs(many)
+    seconds = time.perf_counter() - t0
+    fps = 4 * batch / seconds
+    print(f"pair serving {net}: PairPredictor {str(dtype)[6:]} (folded forward) {batch} "
+          f"pairs at {height}x{width}: depth abs err max {errs['depth'].max():.3e}, mean "
+          f"{errs['depth'].mean():.3e}; pose max {errs['pose'].max():.3e}, mean "
+          f"{errs['pose'].mean():.3e} to the f32 module forward (tolerance max "
+          f"{TOL_SERVING[0]:.1e}, mean {TOL_SERVING[1]:.1e}); {4 * batch} pairs in "
+          f"{seconds * 1e3:.1f} ms host clock, {fps:.1f} frames/s [{smi}]")
+    return {"depth_max": float(errs["depth"].max()), "frames_per_s": fps}
+
+
+def fused_bound(calls: list, backward: bool) -> tuple:
+    """Least time (ms) an H100 SXM needs for fused sampler calls ``[(imgs, coords), ...]``:
+    forward, imgs and coords read once and out and wmask written once, ~(19 + 7 C)
+    float32 operations a target pixel (the prologue, the weights, C four-tap sums);
+    backward of dcoords, imgs, coords and dout read and dcoords written, ~(39 + 8 C)
+    operations a pixel (the prologue, C four-tap products and sums, the weight
+    gradients)."""
+    nbytes = ops = 0
+    for imgs, coords in calls:
+        B, Hs, Ws, C = imgs.shape
+        n = coords.shape[0] * coords.shape[1] * coords.shape[2]
+        if backward:
+            nbytes += 4 * (B * Hs * Ws * C + 2 * n + C * n + 2 * n)
+            ops += (39 + 8 * C) * n
+        else:
+            nbytes += 4 * (B * Hs * Ws * C + 2 * n + C * n + n)
+            ops += (19 + 7 * C) * n
+    t_bytes, t_ops = nbytes / PEAK_HBM, ops / PEAK_F32
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_fused_times(device, smi: str) -> dict:
+    """The fused kernels over a config-3 step's 4 calls (B=16, 192x256 down to 24x32,
+    Euler-warp coords), forward and forward + backward (dcoords, as the step needs it),
+    against the sampler kernel on the same calls, the plain version, ``grid_sample`` (the
+    closest library call: normalised coordinates, no wmask) and the bound."""
+    cases = fused_cases(device)
+    calls = [cases[f"config3 s{s}"][:2] for s in range(4)]
+    leaves = [c.clone().requires_grad_(True) for _, c in calls]
+    g = np.random.RandomState(SEED + 27)
+    douts = [torch.from_numpy(g.randn(*c.shape[:3], 3).astype(np.float32)).to(device)
+             for _, c in calls]
+    norm = lambda i, c: torch.stack([c[..., 0] * (2.0 / (i.shape[2] - 1)) - 1,
+                                     c[..., 1] * (2.0 / (i.shape[1] - 1)) - 1], -1)
+    grid_sample = lambda i, c: F.grid_sample(i.permute(0, 3, 1, 2), norm(i, c), mode="bilinear",
+                                             padding_mode="zeros", align_corners=True)
+    row = {}
+    for name, fn in (("fused", lambda i, c: bilinear_sample_fused(i, c)[0]),
+                     ("kernel4", lambda i, c: bilinear_sample(i, c)[0]),
+                     ("plain", lambda i, c: bilinear_sample_reference(i, c)[0]),
+                     ("grid_sample", grid_sample)):
+        iters = 10 if name == "plain" else 50
+        with torch.no_grad():
+            row[f"{name}_fwd"] = time_ms(lambda: [fn(i, c) for i, c in calls], iters)
+        outs_of = lambda: [fn(i, c) for (i, _), c in zip(calls, leaves)]
+        # grid_sample's output is NCHW: its cotangent the same numbers in its layout
+        cot = douts if name != "grid_sample" else [d.permute(0, 3, 1, 2) for d in douts]
+        row[f"{name}_fwdbwd"] = time_ms(
+            lambda: torch.autograd.grad(outs_of(), leaves, cot), iters)
+    bf, by = fused_bound(calls, False)
+    bb, by_b = fused_bound(calls, True)
+    row.update(bound_fwd=bf, bound_bwd=bb, bound_by=by_b if bb >= bf else by)
+    px = sum(c.shape[0] * c.shape[1] * c.shape[2] for _, c in calls)
+    for what, bound in (("fwd", bf), ("fwdbwd", bf + bb)):
+        print(f"time bilinear_sample_fused, the 4 calls of a config-3 step ({px} target "
+              f"pixels), {'forward' if what == 'fwd' else 'forward+backward'}: fused "
+              f"{row[f'fused_{what}']:.4f} ms, sampler kernel {row[f'kernel4_{what}']:.4f} "
+              f"ms, plain {row[f'plain_{what}']:.4f} ms, grid_sample "
+              f"{row[f'grid_sample_{what}']:.4f} ms, bound {bound:.4f} ms ({row['bound_by']})"
+              f", fused/bound {row[f'fused_{what}'] / bound:.1f}x [{smi}]")
+    return row
+
+
+def phase_depth_then_cam_times(device, smi: str) -> dict:
+    """ms/step of the bf16 config-3 step with the fused sampler and with the plain one, in
+    turns (plain, kernel, kernel, plain; 5 steps a turn) on one state and batch; then the
+    launches a step of each from ``profile_step``."""
+    w, state, kernel_step, batch = profile_step.CONFIGS["depth_then_cam"](
+        None, None, None, device, "kernel")
+    steps = {"kernel": kernel_step,
+             "plain": make_depth_then_cam_step(dataclasses.replace(w, sampler="xla"))}
+    times = {"kernel": [], "plain": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        times[name].append(time_ms(lambda: steps[name](state, batch), 5))
+    out = {}
+    for name, ts in times.items():
+        ms = sum(ts) / len(ts)
+        out[name] = {"ms": ms}
+        print(f"time training step bf16 config 3 ({C3_HEIGHT}x{C3_WIDTH}, B={C3_BATCH}) "
+              f"sampler={name}: {ms:.2f} ms/step (turns {', '.join(f'{t:.2f}' for t in ts)}; "
+              f"spread {max(ts) - min(ts):.2f} ms), {C3_BATCH / ms * 1e3:.1f} frames/s [{smi}]")
+    del state
+    for name in ("kernel", "plain"):
+        prof = profile_step.profile(steps=1, device=device, config="depth_then_cam",
+                                    sampler=name, top=0)
+        out[name].update(launches=prof["launches"], kernel_ms=prof["kernel_ms"])
+    return out
+
+
 def reset_counts() -> None:
     fused_tail.launches = bilinear_sample.launches = 0
     smoothness_fused.launches = smoothness_fused.backward_launches = 0
     sig_l2_fused.launches = sig_l2_fused.backward_launches = 0
+    bilinear_sample_fused.launches = bilinear_sample_fused.backward_launches = 0
+    bilinear_sample_reference.calls = 0
 
 
-def read_counts() -> dict:
-    if torch.cuda.is_available():
+def read_counts(sync: bool = True) -> dict:
+    """The kernels' launch counts, and the plain sampler's calls (``plain_samples``)."""
+    if sync and torch.cuda.is_available():
         torch.cuda.synchronize()
     return {"fused_tail": fused_tail.launches, "bilinear_sample": bilinear_sample.launches,
             "smoothness_fwd": smoothness_fused.launches,
             "smoothness_bwd": smoothness_fused.backward_launches,
-            "sig_fwd": sig_l2_fused.launches, "sig_bwd": sig_l2_fused.backward_launches}
+            "sig_fwd": sig_l2_fused.launches, "sig_bwd": sig_l2_fused.backward_launches,
+            "fused_fwd": bilinear_sample_fused.launches,
+            "fused_bwd": bilinear_sample_fused.backward_launches,
+            "plain_samples": bilinear_sample_reference.calls}
 
 
 def main() -> None:
@@ -1254,6 +1660,33 @@ def main() -> None:
                 raise AssertionError(f"split_training {phase} launched sig {got}, not "
                                      f"{n_fwd} + {n_bwd} a step")
         stamp("split_training")
+
+        fused_errs = phase_fused_sampler("cuda", info["smi"])
+        reset_counts()  # a main path: config-3 training
+        c3 = phase_depth_then_cam("cuda", tmp, smi=info["smi"])
+        c3_counts = read_counts()
+        for i, n in enumerate(c3["per_step"], start=1):
+            if {k: n[k] for k in C3_PER_STEP} != C3_PER_STEP:
+                raise AssertionError(f"config-3 step {i} launched {n}, not {C3_PER_STEP}")
+        print(f"depth_then_cam launches: {c3_counts} in {C3_STEPS} steps, "
+              f"{C3_PER_STEP} a step [{info['smi']}]")
+        stamp("fused sampler checks and config-3 training")
+        # two main paths: the eval harness's nets, each between its own count resets
+        evals = phase_eval_harness("cuda", tmp, c3["variables"], smi=info["smi"])
+        for net, (_, counts) in evals.items():
+            want = (SIG_PER_EVAL_BATCH[net] * EVAL_BATCHES, 0)
+            if (counts["sig_fwd"], counts["sig_bwd"]) != want:
+                raise AssertionError(f"eval harness --net {net} launched sig {counts}, "
+                                     f"not {want}")
+        # two main paths: pair serving of the full-resolution net (config 3's checkpoint)
+        # and of the truncated one (split_training's phase 1, the net the CLI serves)
+        for net, pv in (("full-resolution", c3["variables"]),
+                        ("truncated", split["pair_variables"])):
+            reset_counts()
+            phase_pair_serving("cuda", pv, smi=info["smi"])
+            pair_counts = read_counts()
+            print(f"pair serving {net} launches: {pair_counts} [{info['smi']}]")
+        stamp("eval harness and pair serving")
     phase_step_parity("cuda", batch, info["smi"])
     stamp("config-4 step parity")
     srow = phase_sampler_times("cuda", info["smi"])
@@ -1267,6 +1700,10 @@ def main() -> None:
     sig_row = phase_sig_times("cuda", info["smi"])["phase-2 step, 4 calls"]
     phase_split_times("cuda", info["smi"])
     stamp("sig and split_training times")
+    phase_depth_then_cam_parity("cuda", info["smi"])
+    frow = phase_fused_times("cuda", info["smi"])
+    phase_depth_then_cam_times("cuda", info["smi"])
+    stamp("config-3 step parity and times")
 
     kernels = [{
         "name": "fused_tail", "route": "cuda",
@@ -1309,6 +1746,19 @@ def main() -> None:
         "bound_ms": sig_row["bound_fwd"] + sig_row["bound_bwd"],
         "bound_by": sig_row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the same function
+    }, {
+        # forward and backward (dcoords) of a config-3 step's four calls (B=16, 192x256
+        # down to 24x32); launches: forward + backward in the config-3 run
+        "name": "bilinear_sample_fused", "route": "cuda",
+        "source": "tf_depth_estimation_torch/csrc/bilinear_sample_fused.cu",
+        "replaces": "tf_depth_estimation_tpu/ops/pallas_warp.py:51",
+        "launches": c3_counts["fused_fwd"] + c3_counts["fused_bwd"],
+        "max_abs_err": fused_errs["out"],
+        "ms": frow["fused_fwdbwd"], "plain_ms": frow["plain_fwdbwd"],
+        "bound_ms": frow["bound_fwd"] + frow["bound_bwd"], "bound_by": frow["bound_by"],
+        # grid_sample(bilinear, zeros, align_corners=True), forward and backward for the
+        # grid: the closest library call, not the same function
+        "library_ms": frow["grid_sample_fwdbwd"],
     }]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {info['smi']}")

@@ -1,7 +1,9 @@
 """The port and chip_smoke.py run without JAX, Flax, orbax or the JAX package: the GPU
 machine has none of them. One child process per main path imports every port module and
 drives the path on the CPU through chip_smoke.py: serving, one training step of config 4,
-one of config 2 with a validation, and split_training's two phases.
+one of config 2 with a validation, split_training's two phases, one step of config 3 with
+the eval harness's two nets, and pair serving of the full-resolution and the truncated
+DepthPoseNet.
 
 The children run beside the other pytest workers, so each keeps PyTorch to two threads:
 one child with every path and PyTorch's default of a thread per core took ~4x its time
@@ -29,6 +31,7 @@ import tf_depth_estimation_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 import tempfile
+import numpy as np
 import chip_smoke
 from tf_depth_estimation_torch.ops.bilinear_sample import bilinear_sample
 from tf_depth_estimation_torch.ops.fused_tail import fused_tail
@@ -70,6 +73,28 @@ with tempfile.TemporaryDirectory() as tmp:
 assert all(split[p]["sig_fwd"] == split[p]["sig_bwd"] == 0 for p in ("pair", "single"))
 assert sig_l2_fused.launches == sig_l2_fused.backward_launches == 0, split
 """,
+    # on the CPU the fused sampler is the plain version: 4 plain samplings a step
+    "depth_then_cam": r"""
+with tempfile.TemporaryDirectory() as tmp:
+    c3 = chip_smoke.phase_depth_then_cam("cpu", tmp, height=32, width=64, batch=2, steps=1,
+                                         dtype="float32")
+    evals = chip_smoke.phase_eval_harness("cpu", tmp, c3["variables"], height=32, width=64,
+                                          batch=2, n=1, dtype="float32")
+assert [(n["fused_fwd"], n["fused_bwd"], n["bilinear_sample"], n["plain_samples"],
+         n["smoothness_fwd"]) for n in c3["per_step"]] == [(0, 0, 0, 4, 0)], c3["per_step"]
+assert all(c["sig_fwd"] == 0 and np.isfinite(m["total"]) for m, c in evals.values()), evals
+""",
+    # the full-resolution net (config 3's) and the truncated one (the pair CLI's)
+    "pair_serving": r"""
+from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
+from tf_depth_estimation_torch.weights import state_dict_to_variables
+for full in (True, False):
+    variables = state_dict_to_variables(DepthPoseNet(
+        full_resolution=full, generator=torch.Generator().manual_seed(0)).state_dict())
+    served = chip_smoke.phase_pair_serving("cpu", variables, height=32, width=64, batch=2,
+                                          dtype=torch.float32)
+    assert served["frames_per_s"] > 0 and fused_tail.launches == 0, served
+""",
 }
 
 
@@ -104,7 +129,11 @@ def test_every_port_module_is_imported_by_the_child():
             "tf_depth_estimation_torch.ops.sig_l2",
             "tf_depth_estimation_torch.models.depth_pose",
             "tf_depth_estimation_torch.data.demon",
-            "tf_depth_estimation_torch.train.experiments.split_training"} <= names
+            "tf_depth_estimation_torch.train.experiments.split_training",
+            "tf_depth_estimation_torch.ops.bilinear_sample_fused",
+            "tf_depth_estimation_torch.train.experiments.depth_then_cam",
+            "tf_depth_estimation_torch.train.experiments.eval_harness",
+            "tf_depth_estimation_torch.infer.fast_pose"} <= names
 
 
 def test_no_port_file_names_jax_in_an_import():

@@ -1,9 +1,11 @@
-"""Batch-prediction CLI, depth mode (ref ``batch_prediction.py``).
+"""Batch-prediction CLI (ref ``batch_prediction.py`` / ``batch_prediction_cam_est.py``).
 
 ``python -m tf_depth_estimation_torch.infer.cli --dataset_dir D --output_dir O
---weights W.npz [--device cuda]`` globs ``D/*.jpg`` and writes ``<name>_z.bin`` float32
-depth dumps, with the flags of ``tf_depth_estimation_tpu/infer/cli.py`` for that mode.
-Orbax checkpoint directories and the pair and turbo modes come with later slices.
+--weights W.npz [--mode depth|pair] [--device cuda]`` globs ``D/*.jpg`` and writes
+``<name>_z.bin`` float32 depth dumps, and in pair mode ``<frame>.txt`` poses beside the
+frames, with the flags of ``tf_depth_estimation_tpu/infer/cli.py`` for those modes. Depth
+mode serves depth4 DispNet, pair mode the truncated DepthPoseNet (JAX ``infer/cli.py:70-71``).
+Orbax checkpoint directories and the turbo mode come with later slices.
 """
 from __future__ import annotations
 
@@ -11,10 +13,10 @@ import argparse
 
 import torch
 
-from tf_depth_estimation_torch.infer.predictor import DepthPredictor
+from tf_depth_estimation_torch.infer.predictor import DepthPredictor, PairPredictor
 from tf_depth_estimation_torch.models.dispnet import DispNet
 from tf_depth_estimation_torch.utils.npz import load_variables_npz
-from tf_depth_estimation_torch.weights import variables_to_state_dict
+from tf_depth_estimation_torch.weights import depth_pose_from_variables, variables_to_state_dict
 
 
 def main(argv=None):
@@ -22,7 +24,7 @@ def main(argv=None):
     p.add_argument("--dataset_dir", required=True)
     p.add_argument("--output_dir", required=True)
     p.add_argument("--weights", required=True, help="flat .npz serving weights")
-    p.add_argument("--mode", choices=["depth"], default="depth")
+    p.add_argument("--mode", choices=["depth", "pair"], default="depth")
     p.add_argument("--image_height", type=int, default=224,
                    help="network input height (ref batch_prediction.py: 224)")
     p.add_argument("--image_width", type=int, default=224)
@@ -36,14 +38,26 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     variables, _meta = load_variables_npz(args.weights)
-    try:  # fail here, naming the file, rather than deep inside the forward
-        DispNet().load_state_dict(variables_to_state_dict(variables), strict=True)
-    except (KeyError, RuntimeError) as e:
-        raise SystemExit(f"{args.weights} does not hold depth4 DispNet weights: {e}")
-    pred = DepthPredictor(
-        variables["params"], variables["batch_stats"], height=args.image_height,
-        width=args.image_width, batch_size=args.batch_size,
-        dtype=getattr(torch, args.dtype), device=args.device)
+    # check the tree against the mode's model here, naming the file, rather than deep
+    # inside the forward
+    if args.mode == "depth":
+        try:
+            DispNet().load_state_dict(variables_to_state_dict(variables), strict=True)
+        except (KeyError, RuntimeError) as e:
+            raise SystemExit(f"{args.weights} does not hold depth4 DispNet weights: {e}")
+        cls = DepthPredictor
+    else:
+        try:
+            full = depth_pose_from_variables(variables, device="cpu").full_resolution
+        except (KeyError, RuntimeError) as e:
+            raise SystemExit(f"{args.weights} does not hold DepthPoseNet weights: {e}")
+        if full:
+            raise SystemExit(f"{args.weights} holds the full-resolution DepthPoseNet; "
+                             f"pair mode serves the truncated one")
+        cls = PairPredictor
+    pred = cls(variables["params"], variables["batch_stats"], height=args.image_height,
+               width=args.image_width, batch_size=args.batch_size,
+               dtype=getattr(torch, args.dtype), device=args.device)
     written = pred.predict_directory(
         args.dataset_dir, args.output_dir, out_height=args.out_height,
         out_width=args.out_width, bilateral=not args.no_bilateral)

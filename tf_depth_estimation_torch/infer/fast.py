@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Union
 
 import torch
+from torch import nn
 
 from tf_depth_estimation_torch.models.dispnet import ENC, DispNet
 from tf_depth_estimation_torch.models.layers import bn_affine, conv2d_same, conv_transpose2d_same
@@ -39,10 +40,43 @@ def _cat(xs: List[torch.Tensor]) -> torch.Tensor:
     return torch.cat(xs, 1, out=out)
 
 
-def _state_dict(variables_or_module) -> Dict[str, torch.Tensor]:
-    if isinstance(variables_or_module, DispNet):
-        return variables_or_module.state_dict()
-    return variables_to_state_dict(variables_or_module)
+def float_state(variables_or_module: Union[Dict[str, Any], nn.Module],
+                device: Union[str, torch.device]) -> Dict[str, torch.Tensor]:
+    """The state dict of a JAX variables tree or of a module, float32 on ``device``."""
+    sd = (variables_or_module.state_dict() if isinstance(variables_or_module, nn.Module)
+          else variables_to_state_dict(variables_or_module))
+    return {k: v.detach().to(device=device, dtype=torch.float32) for k, v in sd.items()}
+
+
+def _affine(sd: Dict[str, torch.Tensor], name: str):
+    return bn_affine(*(sd[f"{name}.bn.{k}"] for k in ("bias", "running_mean",
+                                                       "running_var")))
+
+
+def fold_layers(sd: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, Any]:
+    """``{layer: (weight, bias)}`` in ``dtype`` (weights channels-last) from a float32
+    state dict: each BN scale folded into its conv kernel's output channels and its shift
+    left as the conv bias (for the stem as for every other layer: cuDNN adds a bias in the
+    convolution's epilogue), and each linear head's conv and bias as they are. A layer is
+    keyed by its own name (``cnv1``, ``upcnv7``, ``exp_upcnv5``, ``disp4``, ``pose_pred``),
+    for ``DispNet`` and ``DepthPoseNet`` alike; a transposed conv is one whose name holds
+    ``upcnv``."""
+    cl = lambda w: w.to(dtype).contiguous(memory_format=torch.channels_last)
+    folded: Dict[str, Any] = {}
+    for key in sd:
+        if not key.endswith(".weight"):
+            continue
+        name = key[: -len(".weight")]
+        if name.endswith(".conv"):
+            name = name[: -len(".conv")]
+            s, t = _affine(sd, name)
+            w = sd[key]
+            # output channels: dim 0 of OIHW, dim 1 of the transposed conv's [in, out, k, k]
+            w = w * (s[None, :, None, None] if "upcnv" in name else s[:, None, None, None])
+            folded[name.split(".")[-1]] = (cl(w), t.to(dtype))
+        else:                                   # linear heads: conv + bias, no BN
+            folded[name.split(".")[-1]] = (cl(sd[key]), sd[f"{name}.bias"].to(dtype))
+    return folded
 
 
 def fold_weights(variables_or_module: Union[Dict[str, Any], DispNet], *,
@@ -53,31 +87,11 @@ def fold_weights(variables_or_module: Union[Dict[str, Any], DispNet], *,
     Returns ``{layer: (weight, bias)}`` in ``dtype`` on ``device`` (weights channels-last),
     plus ``"tail"``: the fused tail's parameters, prepared for ``dtype``.
     """
-    sd = {k: v.detach().to(device=device, dtype=torch.float32)
-          for k, v in _state_dict(variables_or_module).items()}
-    cl = lambda w: w.to(dtype).contiguous(memory_format=torch.channels_last)
-
-    def affine(name):
-        return bn_affine(*(sd[f"{name}.bn.{k}"] for k in ("bias", "running_mean",
-                                                           "running_var")))
-
-    folded: Dict[str, Any] = {}
-    for key in sd:
-        if not key.endswith(".weight"):
-            continue
-        name = key[: -len(".weight")]
-        if name.endswith(".conv"):
-            name = name[: -len(".conv")]
-            s, t = affine(name)
-            w = sd[key]
-            # output channels: dim 0 of OIHW, dim 1 of the transposed conv's [in, out, k, k]
-            w = w * (s[None, :, None, None] if "upcnv" in name else s[:, None, None, None])
-            folded[name.split(".")[1]] = (cl(w), t.to(dtype))
-        else:                                   # disparity heads: conv + bias, no BN
-            folded[name.split(".")[1]] = (cl(sd[key]), sd[f"{name}.bias"].to(dtype))
+    sd = float_state(variables_or_module, device)
+    folded = fold_layers(sd, dtype)
     folded["tail"] = prepare_tail_params(
-        sd["decoder.upcnv1.conv.weight"], affine("decoder.upcnv1"),
-        sd["decoder.icnv1.conv.weight"], affine("decoder.icnv1"),
+        sd["decoder.upcnv1.conv.weight"], _affine(sd, "decoder.upcnv1"),
+        sd["decoder.icnv1.conv.weight"], _affine(sd, "decoder.icnv1"),
         sd["decoder.disp1.weight"], sd["decoder.disp1.bias"], dtype)
     folded["dtype"] = dtype
     return folded

@@ -1,4 +1,5 @@
-"""Batched depth inference: the port of ``tf_depth_estimation_tpu/infer/predictor.py``.
+"""Batched depth and pose inference: the port of ``tf_depth_estimation_tpu/infer/
+predictor.py``'s ``DepthPredictor`` and ``PairPredictor``.
 
 Frames are batched on the host; full batches run at ``batch_size`` and the ragged tail is
 padded only up to the next power of two, so the tail wastes less than itself in compute.
@@ -6,7 +7,8 @@ uint8 frames cross to the device as uint8 (a quarter of the float32 bytes) and b
 ``dtype`` there. Padded rows are sliced off on the device before the copy to the host,
 and batch i+1 is queued before batch i's result is pulled, so the device does not wait
 on the host's copy. ``predict_directory`` keeps the reference's ``<frame>.jpg_z.bin``
-output contract (``batch_prediction.py:57-77``).
+output contract (``batch_prediction.py:57-77``) and, for pairs, its ``<frame>.jpg.txt``
+pose export (``batch_prediction_cam_est.py:96-98``).
 """
 from __future__ import annotations
 
@@ -18,7 +20,10 @@ import numpy as np
 import torch
 
 from tf_depth_estimation_torch.infer.fast import fold_weights, folded_forward
+from tf_depth_estimation_torch.infer.fast_pose import fold_depth_pose, folded_depth_pose_forward
+from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
 from tf_depth_estimation_torch.models.dispnet import DispNetVariant
+from tf_depth_estimation_torch.weights import variables_to_state_dict
 
 
 def _load_frame(path: str, height: int, width: int) -> np.ndarray:
@@ -43,12 +48,18 @@ def _postprocess(z: np.ndarray, out_height: int, out_width: int,
 
 
 def _batched_apply(fwd: Callable[[torch.Tensor], torch.Tensor], arrays: np.ndarray,
-                   batch_size: int, device: torch.device) -> List[np.ndarray]:
-    """Run ``fwd`` over N frames in batches of ``batch_size``, the ragged tail padded to
-    the next power of two; returns the per-batch outputs, de-padded, on the host."""
+                   batch_size: int, device: torch.device) -> List:
+    """Run ``fwd`` over N inputs in batches of ``batch_size``, the ragged tail padded to
+    the next power of two; returns the per-batch outputs (a tensor or a tuple of them),
+    de-padded, on the host."""
     N = arrays.shape[0]
-    outs: List[np.ndarray] = []
+    outs: List = []
     pending = None  # (device output, rows to keep), queued but not yet pulled
+
+    def pull(out, n):
+        if isinstance(out, tuple):
+            return tuple(o[:n].cpu().numpy() for o in out)
+        return out[:n].cpu().numpy()
     i = 0
     while i < N:
         n = min(batch_size, N - i)
@@ -59,12 +70,34 @@ def _batched_apply(fwd: Callable[[torch.Tensor], torch.Tensor], arrays: np.ndarr
             chunk = np.concatenate([chunk, pad], 0)
         out = fwd(torch.from_numpy(np.ascontiguousarray(chunk)).to(device))
         if pending is not None:
-            outs.append(pending[0][:pending[1]].cpu().numpy())
+            outs.append(pull(*pending))
         pending = (out, n)
         i += n
     if pending is not None:
-        outs.append(pending[0][:pending[1]].cpu().numpy())
+        outs.append(pull(*pending))
     return outs
+
+
+def _list_frames(dataset_dir: str) -> List[str]:
+    img_list = sorted(glob(os.path.join(dataset_dir, "*.jpg")))
+    if not img_list:
+        raise FileNotFoundError(
+            f"no *.jpg frames in {dataset_dir!r} (frames are globbed "
+            "non-recursively, like the reference batch_prediction.py)")
+    return img_list
+
+
+def _resolve_use_fast(use_fast: Optional[bool], batch_stats, height: int,
+                      width: int) -> bool:
+    """The folded forward needs batch statistics and H, W divisible by 4
+    (``fast_pose.py``'s guard): ``use_fast=None`` takes it where it can, ``False`` forces
+    the module forward, and ``True`` raises where it cannot."""
+    fast_ok = bool(batch_stats) and height % 4 == 0 and width % 4 == 0
+    if use_fast is None:
+        return fast_ok
+    if use_fast and not fast_ok:
+        raise ValueError("use_fast=True requires batch_stats and H, W divisible by 4")
+    return use_fast
 
 
 class DepthPredictor:
@@ -106,17 +139,83 @@ class DepthPredictor:
         """Glob ``*.jpg``, write ``<name>_z.bin`` float32 dumps (the reference's output
         contract), a few batches of frames at a time."""
         os.makedirs(output_dir, exist_ok=True)
-        img_list = sorted(glob(os.path.join(dataset_dir, "*.jpg")))
-        if not img_list:
-            raise FileNotFoundError(
-                f"no *.jpg frames in {dataset_dir!r} (frames are globbed "
-                "non-recursively, like the reference batch_prediction.py)")
+        img_list = _list_frames(dataset_dir)
         written = []
         chunk = self.batch_size * 4
         for i in range(0, len(img_list), chunk):
             paths = img_list[i:i + chunk]
             frames = np.stack([_load_frame(p, self.height, self.width) for p in paths])
             for path, z in zip(paths, self.predict_array(frames)):
+                out = os.path.join(output_dir, os.path.basename(path) + "_z.bin")
+                _postprocess(z, out_height, out_width, bilateral).tofile(out)
+                written.append(out)
+        return written
+
+
+class PairPredictor:
+    """Consecutive-frame depth and 6-DoF pose export with DepthPoseNet (ref
+    ``batch_prediction_cam_est.py``).
+
+    ``params`` / ``batch_stats`` are the JAX variables' collections (numpy trees). With
+    batch statistics and H, W divisible by 4 the forward is ``infer/fast_pose.py`` with BN
+    folded once here (``use_fast``, as ``_resolve_use_fast`` decides); otherwise the
+    module's eval forward in ``dtype``. Pair i is [frame i | frame i + 1]; its output is
+    the finest disparity and the pose of frame i + 1 relative to frame i.
+    """
+
+    def __init__(self, params, batch_stats=None, *, height: int = 192, width: int = 256,
+                 full_resolution: bool = False, batch_size: int = 16,
+                 dtype: torch.dtype = torch.bfloat16, use_fast: Optional[bool] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        self.height, self.width, self.batch_size = height, width, batch_size
+        self.device = torch.device(device)
+        variables = {"params": params, "batch_stats": batch_stats or {}}
+        self.uses_fast_path = _resolve_use_fast(use_fast, batch_stats, height, width)
+        if self.uses_fast_path:
+            folded = fold_depth_pose(variables, dtype=dtype, device=self.device)
+
+            def forward(x):
+                disps, pose, _masks = folded_depth_pose_forward(
+                    folded, x, full_resolution=full_resolution)
+                return disps[0][..., 0], pose[:, 0]
+        else:
+            model = DepthPoseNet(full_resolution=full_resolution, dtype=dtype)
+            model.load_state_dict(variables_to_state_dict(variables), strict=True)
+            model = model.to(self.device).eval()
+
+            def forward(x):
+                disps, pose, _masks = model(x.permute(0, 3, 1, 2).float())
+                return disps[0][:, 0], pose[:, 0]
+
+        self._fwd = torch.inference_mode()(forward)
+
+    def predict_pairs(self, frames: np.ndarray):
+        """[N, H, W, 3] float32 or uint8 -> (disparity [N-1, h, w], pose [N-1, 6]) over
+        the consecutive pairs."""
+        if frames.shape[1:] != (self.height, self.width, 3) or frames.shape[0] < 2:
+            raise ValueError(f"frames must be [N >= 2, {self.height}, {self.width}, 3], "
+                             f"got {frames.shape}")
+        pairs = np.concatenate([frames[:-1], frames[1:]], axis=-1)
+        outs = _batched_apply(self._fwd, pairs, self.batch_size, self.device)
+        return (np.concatenate([z for z, _ in outs], 0),
+                np.concatenate([p for _, p in outs], 0))
+
+    def predict_directory(self, dataset_dir: str, output_dir: str, *,
+                          out_height: int = 240, out_width: int = 720,
+                          bilateral: bool = True) -> List[str]:
+        """Glob ``*.jpg``; for each frame but the last write its pose to ``<frame>.txt``
+        beside it and ``<name>_z.bin`` into ``output_dir``, in chunks of a few batches
+        that overlap by one frame (pair i needs frames i and i + 1)."""
+        os.makedirs(output_dir, exist_ok=True)
+        img_list = _list_frames(dataset_dir)
+        written = []
+        chunk = self.batch_size * 4
+        for i in range(0, max(len(img_list) - 1, 0), chunk):
+            paths = img_list[i:i + chunk + 1]
+            frames = np.stack([_load_frame(p, self.height, self.width) for p in paths])
+            depths, poses = self.predict_pairs(frames)
+            for path, z, pose in zip(paths[:-1], depths, poses):
+                np.savetxt(path + ".txt", pose, fmt="%f")
                 out = os.path.join(output_dir, os.path.basename(path) + "_z.bin")
                 _postprocess(z, out_height, out_width, bilateral).tofile(out)
                 written.append(out)

@@ -2,9 +2,11 @@
 
 The port's copy of ``tf_depth_estimation_tpu/losses/config.py`` (plain data): every
 reference experiment differs only in these constants, and the classmethods reproduce each
-entry point's block. ``sampler`` keeps the JAX package's two values; in the port
-``"pallas"`` selects the port's hand-written CUDA kernel (``ops/bilinear_sample.py``) and
-``"xla"`` the plain PyTorch sampler (``geometry/sampling.py``).
+entry point's block. ``sampler`` takes the JAX package's names; in the port ``"pallas"``
+selects the hand-written CUDA sampler (``ops/bilinear_sample.py``), ``"fused"`` the fused
+one (``ops/bilinear_sample_fused.py``) and ``"xla"`` the plain PyTorch sampler
+(``geometry/sampling.py``). One preset differs from the JAX package's, in that field
+alone: ``depth_then_cam()`` takes ``"fused"`` where JAX keeps ``"xla"``.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ class LossWeights:
     width: int
     num_scales: int = 4
     max_steps: int = 200_000
-    # warp sampler: "pallas" = the port's CUDA kernel, "xla" = the plain PyTorch version
+    # warp sampler: "pallas" / "fused" = the port's CUDA kernels, "xla" = the plain version
     sampler: str = "xla"
 
     smooth_weight: float = 1.0
@@ -45,10 +47,16 @@ class LossWeights:
 
     @classmethod
     def depth_then_cam(cls) -> "LossWeights":
-        """``train_depth_then_cam.py:44-52`` — DeMoN 192x256 (BASELINE config 3)."""
+        """``train_depth_then_cam.py:44-52`` — DeMoN 192x256 (BASELINE config 3).
+
+        ``sampler="fused"``, where the JAX package keeps ``"xla"``: the one field in which
+        a port preset differs from JAX's. Every warp of a config-3 step (16 images, the
+        same size in and out) is eligible for the fused kernels, which the JAX package
+        ships but no JAX path calls (``pallas_warp.py:48`` keeps its compiled path off).
+        """
         return cls(height=192, width=256, max_steps=200_000,
                    smooth_weight=1.0, data_weight=1.0, depth_weight=1.0,
-                   explain_reg_weight=0.2)
+                   explain_reg_weight=0.2, sampler="fused")
 
     @classmethod
     def optflow_combine(cls) -> "LossWeights":

@@ -2,9 +2,9 @@
 
 Each mirrors one reference loss graph, takes the predictions and the batch (NHWC, as in
 the JAX package) and returns ``(total, components)``. Ported so far: ``depth_only_loss``
-and ``depth_only_val_loss`` (BASELINE config 2), ``optflow_combine_loss`` (config 4), and
-``pairwise_depth_loss`` and ``single_depth_loss`` (the two phases of ``split_training``);
-the others come with their experiments. Every smoothness term goes through
+and ``depth_only_val_loss`` (BASELINE config 2), ``depth_then_cam_loss`` (config 3),
+``optflow_combine_loss`` (config 4), and ``pairwise_depth_loss`` and ``single_depth_loss``
+(the two phases of ``split_training``); the others come with their experiments. Every smoothness term goes through
 ``ops/smoothness.py:smoothness_fused`` and every sig term through
 ``ops/sig_l2.py:sig_l2_fused``: the CUDA kernels on the GPU, the plain versions on the
 CPU.
@@ -78,6 +78,41 @@ def depth_only_val_loss(pred_depths: Sequence[torch.Tensor], label: torch.Tensor
         depth_loss += si_log_rmse(curr_label, pred_depths[s]) * w.depth_weight / 2**s
     total = depth_loss + smooth_loss
     return total, {"total": total, "si_log_rmse": depth_loss, "smooth": smooth_loss}
+
+
+def depth_then_cam_loss(image_left: torch.Tensor, image_right: torch.Tensor,
+                        pred_disps: Sequence[torch.Tensor], pred_poses: torch.Tensor,
+                        pred_exp_logits: Sequence[torch.Tensor], intrinsics: torch.Tensor,
+                        w: LossWeights):
+    """Self-supervised joint depth and pose (ref ``train_depth_then_cam.py:156-257``,
+    BASELINE config 3), per scale: the smoothness of 1/disp divided by 2^s, the
+    explainability cross-entropy, and the explainability-weighted photometric L1 of the
+    right image warped with the predicted Euler pose at ``intrinsics[:, s]`` (no 1/2^s on
+    the photometric term, as in the reference). Over ``min(len(pred_disps),
+    w.num_scales)`` scales, as the JAX package iterates (the full-resolution net gives 4).
+    ``pred_poses`` [B, 1, 6]; ``intrinsics`` [B, S, 3, 3]; the warps take ``w.sampler``."""
+    smooth_loss = pixel_loss = exp_loss = 0.0
+    B = image_left.shape[0]
+    for s in range(min(len(pred_disps), w.num_scales)):
+        hw = w.scale_hw(s)
+        smooth_loss += w.smooth_weight / 2**s * smoothness_fused(1.0 / pred_disps[s])
+        curr_left = _area(image_left, hw)
+        curr_right = _area(image_right, hw)
+        warp = projective_inverse_warp(curr_right, 1.0 / pred_disps[s][..., 0],
+                                       pred_poses[:, 0, :], intrinsics[:, s], fmt="euler",
+                                       sampler=w.sampler)
+        err = (warp.image - curr_left).abs()
+        if w.explain_reg_weight > 0:
+            logits = pred_exp_logits[s][..., :2]
+            ref_mask = reference_explain_mask(B, w.height, w.width, s, device=logits.device)
+            exp_loss += w.explain_reg_weight * explain_reg_loss(logits, ref_mask)
+            exp = torch.softmax(logits, -1)[..., 1:2]
+            pixel_loss += (err * exp).mean() * w.data_weight
+        else:
+            pixel_loss += err.mean() * w.data_weight
+    total = pixel_loss + smooth_loss + exp_loss
+    return total, {"total": total, "pixel": pixel_loss, "smooth": smooth_loss,
+                   "exp": exp_loss}
 
 
 def optflow_combine_loss(image_left: torch.Tensor, image_right: torch.Tensor,

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and becomes its own shared l
 ``build/torch_kernels/<name>-<hash>.so`` at the root of the checkout; the hash covers the
 source and the flags, so an edited source builds anew and an unchanged one loads at once.
 No source includes PyTorch's headers: with them one small file took minutes to compile,
-without them seconds. Everything here runs at first use, never at import.
+without them seconds. ``build_all`` starts one ``nvcc`` for each source of ``KERNELS``,
+all at once. Everything here runs at first use, never at import.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -21,6 +23,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# every source of csrc/, by name
+KERNELS = ("fused_tail", "bilinear_sample", "smoothness", "sig_l2", "bilinear_sample_fused")
 
 # name -> {"lib": ctypes.CDLL, "seconds": nvcc wall time (0 if cached), "log": nvcc output}
 _LOADED: Dict[str, dict] = {}
@@ -72,3 +77,10 @@ def build(name: str) -> dict:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     return build(name)["lib"]
+
+
+def build_all() -> Dict[str, dict]:
+    """``build`` every kernel of ``KERNELS``, one ``nvcc`` for each, all started
+    together; returns name -> ``build``'s entry."""
+    with ThreadPoolExecutor(len(KERNELS)) as ex:
+        return dict(zip(KERNELS, ex.map(build, KERNELS)))

@@ -87,9 +87,14 @@ def bilinear_sample_reference(imgs: torch.Tensor, coords: torch.Tensor):
     """The plain PyTorch version (mirrors ``_bilinear_sample_jnp``, ``geometry/
     sampling.py:72-120``), differentiated by autograd. Integer gathers, never
     ``grid_sample``: that normalises the coordinates (a rounding round trip) and has no
-    wmask."""
+    wmask. Counts its calls in ``bilinear_sample_reference.calls``, so that a run can
+    show that a path sampled through a kernel and never through this."""
+    bilinear_sample_reference.calls += 1
     ints, weights, _ = _prologue(coords, *imgs.shape[1:3])
     return _combine(weights, _gather_corners(imgs, ints))
+
+
+bilinear_sample_reference.calls = 0
 
 
 def _check(imgs: torch.Tensor, coords: torch.Tensor) -> None:

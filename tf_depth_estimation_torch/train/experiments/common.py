@@ -87,12 +87,16 @@ def demon_sources(dataset_dir: str):
 
 def demon_loader(args, height: int, width: int, test_phase: bool = False):
     """DeMoN batches on ``args.device``, two in flight: the scene-pool stream of
-    ``StreamLoader`` for training, the sources in order for the test phase."""
+    ``StreamLoader`` for training, the sources in order for the test phase. The test
+    phase reads with one worker: with two, as the JAX package reads it, whichever batch a
+    worker finishes first comes first, so an evaluation could average one batch twice and
+    skip the next (ROADMAP Queue 3 #4)."""
     params = DemonReaderParams(batch_size=args.batch_size, scaled_height=height,
                                scaled_width=width, test_phase=test_phase)
     ds = DemonDataset(demon_sources(args.dataset_dir), params, seed=args.seed)
     if test_phase:
-        loader = BatchLoader(ds, args.batch_size, seed=args.seed, shuffle=False)
+        loader = BatchLoader(ds, args.batch_size, seed=args.seed, shuffle=False,
+                             num_workers=1)
     else:
         loader = StreamLoader(ds, args.batch_size, seed=args.seed)
     return device_prefetch(iter(loader), args.device)

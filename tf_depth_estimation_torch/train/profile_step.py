@@ -2,16 +2,18 @@
 device time summed by kernel and by kind of work.
 
     python -m tf_depth_estimation_torch.train.profile_step [--config optflow_combine]
-        [--steps 3] [--sampler pallas] [--smoothness kernel] [--sig kernel]
+        [--steps 3] [--sampler kernel] [--smoothness kernel] [--sig kernel]
 
 ``--config optflow_combine`` (BASELINE config 4: depth10_flow, 224x480, batch 10),
-``depth_only`` (config 2: depth4, 240x720, batch 10), ``split_pair`` (split_training's
-phase 1: the truncated DepthPoseNet on a DeMoN pair, 192x256, batch 1) or
-``split_single`` (its phase 2: depth4 DispNet over [coarse depth | image], 192x256, batch
-1), bf16, as the CLIs train. ``--smoothness plain`` and ``--sig plain`` route those loss
-terms to their plain versions for the measurement, as a yardstick for the kernels (the
-port itself always runs them). The batch is synthetic (``data/synthetic.py``'s scenes, on
-the device before the window), the weights random from seed 0. Prints the top kernels,
+``depth_only`` (config 2: depth4, 240x720, batch 10), ``depth_then_cam`` (config 3: the
+full-resolution DepthPoseNet on a DeMoN pair, 192x256, batch 16), ``split_pair``
+(split_training's phase 1: the truncated DepthPoseNet on a DeMoN pair, 192x256, batch 1)
+or ``split_single`` (its phase 2: depth4 DispNet over [coarse depth | image], 192x256,
+batch 1), bf16, as the CLIs train. ``--sampler plain`` (the warps of configs 3 and 4),
+``--smoothness plain`` and ``--sig plain`` route those terms to their plain versions for
+the measurement, as a yardstick for the kernels (the port itself always runs them). The
+batch is synthetic (``data/synthetic.py``'s scenes, on the device before the window),
+the weights random from seed 0. Prints the top kernels,
 the share of each kind, the steps' wall time and the device's busy share (kernel time over
 wall time; overlapping kernels count twice, so it is an upper bound).
 """
@@ -39,13 +41,16 @@ from tf_depth_estimation_torch.train.experiments.split_training import single_ba
 from tf_depth_estimation_torch.train.state import create_train_state
 from tf_depth_estimation_torch.train.steps import (
     make_depth_only_step,
+    make_depth_then_cam_step,
     make_optflow_combine_step,
     make_pairwise_step,
     make_single_depth_step,
 )
 
 # kernel-name fragments -> kind of work, first match wins
-KINDS = (("bilinear_sample", "bilinear_sample kernel"), ("smooth_", "smoothness kernels"),
+KINDS = (("bilinear_sample", "bilinear_sample kernel"),
+         ("warp_fused", "fused sampler kernels"),
+         ("smooth_", "smoothness kernels"),
          ("sig_", "sig kernels"), ("conv", "convolution"),
          ("gemm", "convolution"), ("xmma", "convolution"), ("cudnn", "convolution"),
          ("wgrad", "convolution"), ("dgrad", "convolution"), ("multi_tensor", "adam"),
@@ -110,16 +115,30 @@ def demon_batch(batch: int, height: int, width: int, rng: np.random.RandomState,
     return to_device(BatchLoader._collate(samples), device)
 
 
+def _weights(table, height, width, sampler: str) -> LossWeights:
+    """``table()`` at the given size (its own where None); ``sampler="plain"`` swaps its
+    warp sampler for the plain version, ``"kernel"`` keeps the table's."""
+    w = table()
+    return dataclasses.replace(w, height=height or w.height, width=width or w.width,
+                               **({"sampler": "xla"} if sampler == "plain" else {}))
+
+
 def _dispnet_setup(variant, table, make_step, default_batch=10):
     def setup(batch, height, width, device, sampler):
-        w = table()
-        w = dataclasses.replace(w, height=height or w.height, width=width or w.width,
-                                **({"sampler": sampler} if variant().flow_decoder else {}))
+        w = _weights(table, height, width, sampler)
         model = DispNet(variant(), generator=torch.Generator().manual_seed(0),
                         dtype=torch.bfloat16).to(device)
         data = pair_batch(batch or default_batch, w.height, w.width, 0, device)
         return w, create_train_state(model), make_step(w), data
     return setup
+
+
+def _depth_then_cam_setup(batch, height, width, device, sampler):
+    w = _weights(LossWeights.depth_then_cam, height, width, sampler)
+    data = demon_batch(batch or 16, w.height, w.width, np.random.RandomState(0), device)
+    model = DepthPoseNet(full_resolution=True, generator=torch.Generator().manual_seed(0),
+                         dtype=torch.bfloat16).to(device)
+    return w, create_train_state(model), make_depth_then_cam_step(w), data
 
 
 def _split_setup(phase: str):
@@ -145,19 +164,20 @@ CONFIGS = {
                                       make_optflow_combine_step),
     "depth_only": _dispnet_setup(DispNetVariant.depth4, LossWeights.depth_only,
                                  make_depth_only_step),
+    "depth_then_cam": _depth_then_cam_setup,
     "split_pair": _split_setup("pair"),
     "split_single": _split_setup("single"),
 }
 
 
-def profile(steps: int = 3, sampler: str = "pallas", device="cuda", batch: int = None,
+def profile(steps: int = 3, sampler: str = "kernel", device="cuda", batch: int = None,
             height: int = None, width: int = None, top: int = 25,
             config: str = "optflow_combine", smoothness: str = "kernel",
             sig: str = "kernel") -> dict:
     """Profile ``steps`` bf16 steps of ``config`` after 2 warm-up steps, at the config's
     batch and size unless given; prints the table and returns ``{"wall_ms", "kernel_ms",
-    "launches", "kinds"}`` per step. ``sampler`` picks config 4's warp sampler,
-    ``smoothness`` and ``sig`` the kernels or the plain versions."""
+    "launches", "kinds"}`` per step. ``sampler``, ``smoothness`` and ``sig`` pick the
+    kernels (``"kernel"``) or the plain versions (``"plain"``)."""
     w, state, step, data = CONFIGS[config](batch, height, width, device, sampler)
     batch = next(iter(data.values())).shape[0]
     cuda = torch.device(device).type == "cuda"
@@ -188,7 +208,8 @@ def profile(steps: int = 3, sampler: str = "pallas", device="cuda", batch: int =
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
     busy = sum(t for t, _ in by_name.values())
-    what = (f"sampler={sampler}, " if config == "optflow_combine" else "") \
+    what = (f"sampler={w.sampler}, " if config in ("optflow_combine", "depth_then_cam")
+            else "") \
         + f"smoothness={smoothness}, sig={sig}, "
     print(f"profile: {config}, bfloat16, {w.height}x{w.width}, batch {batch}, {what}"
           f"{steps} steps: wall {wall_us / steps / 1e3:.2f} ms/step (profiler on), kernel "
@@ -211,7 +232,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--config", default="optflow_combine", choices=sorted(CONFIGS))
     p.add_argument("--steps", type=int, default=3)
-    p.add_argument("--sampler", default="pallas", choices=["pallas", "xla"])
+    p.add_argument("--sampler", default="kernel", choices=["kernel", "plain"])
     p.add_argument("--smoothness", default="kernel", choices=["kernel", "plain"])
     p.add_argument("--sig", default="kernel", choices=["kernel", "plain"])
     p.add_argument("--device", default="cuda")

@@ -17,6 +17,7 @@ from tf_depth_estimation_torch.losses.config import LossWeights
 from tf_depth_estimation_torch.losses.pipelines import (
     depth_only_loss,
     depth_only_val_loss,
+    depth_then_cam_loss,
     optflow_combine_loss,
     pairwise_depth_loss,
     single_depth_loss,
@@ -65,6 +66,24 @@ def make_depth_only_val_step(w: LossWeights):
         return comps
 
     return val_step
+
+
+def make_depth_then_cam_step(w: LossWeights):
+    """BASELINE config 3 (``train_depth_then_cam.py``): the full-resolution DepthPoseNet on
+    the pair (one train-mode forward); ``depth_then_cam_loss`` with the predicted Euler
+    pose. Batch keys: ``image_pair`` [B, H, W, 6] (left | right), ``intrinsics``
+    [B, S, 3, 3]."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.train()
+        pair = batch["image_pair"]
+        disps, poses, exps = state.model(pair.permute(0, 3, 1, 2))
+        total, comps = depth_then_cam_loss(
+            pair[..., :3], pair[..., 3:], [_nhwc(d) for d in disps], poses,
+            [_nhwc(e) for e in exps], batch["intrinsics"], w)
+        return _apply(state, total, comps)
+
+    return step
 
 
 def make_optflow_combine_step(w: LossWeights):
