@@ -5,7 +5,8 @@ serve depth4 DispNet at 576x384 with the committed teacher weights, train config
 depth with in-loop validation) at 240x720, train both phases of split_training
 (DepthPoseNet pairwise, then depth4 over [coarse depth | image]) at 192x256, train config 3
 (the full-resolution DepthPoseNet, self-supervised depth and pose) at 192x256, run the eval
-harness's two nets and serve DepthPoseNet pairs.
+harness's two nets, serve DepthPoseNet pairs, run the int8 / bf16 tensor-core probes and
+serve TurboDepthNet.
 
     python3 chip_smoke.py
 
@@ -99,6 +100,26 @@ Phases, each raising on failure:
      config-3 step's 4 calls, forward and forward + backward; ms/step of the bf16 step with
      the fused and with the plain sampler, in turns of 5 steps; launches a step from
      ``train/profile_step.py``.
+ 23. kernel vs plain: ``dot_loop`` (1024^3, R = 64) and ``dot_grid`` (4096^3) against
+     their plain versions on the probes' operands, int8 and bf16: int8 bit-equal, bf16
+     within ``bf16_rtol(K)`` of max |plain|, the probes' float32 sums likewise, one launch
+     a call; a shape off the tile raises;
+ 24. the probes, two main paths: ``tools/probe_int8_dot.py`` and
+     ``tools/probe_int8_dot2.py`` of the port run as a user runs them, the launch counts
+     set to 0 before and read after (2 x 41 launches of each kernel); then times: each
+     kernel alone (CUDA events, best of 5 windows), its TOPS and share of the bound, the
+     plain version, the library yardstick (``torch._int_mm``, ``torch.mm`` with float32
+     output; R in turn for the loop), the call as the JAX probes time it (kernel, float32
+     sum, ``.item()``) and the int8 / bf16 speed-ups;
+ 25. turbo forward parity: ``fast_turbo_forward`` against the module's eval ``full_only``
+     forward for the nine presets, B=2, float32 (colon at 240x720, the others at
+     576x384) at rtol = atol = 2e-4, on the committed weights where the machine has them
+     and a seeded init with set batch statistics elsewhere;
+ 26. serving, a main path: a ``TurboPredictor`` (bf16, folded) over the committed
+     turbo-small weights answers requests of 8, 5 and 1 frames at 576x384 within phase
+     5's limits of the f32 module forward, with no kernel of this package on the path;
+     frames/s of the bf16 folded forward at B=128 (CUDA events) and of the predictor from
+     uint8 host frames.
 The GPU machine has no ``h5py``, so the smoke cannot write the DeMoN HDF5 files that the
 split_training and depth_then_cam CLIs read (``data/demon.py``): phases 15 and 19 feed the
 CLIs' train functions batches of synthetic scenes, augmented and preprocessed by
@@ -128,16 +149,31 @@ from tf_depth_estimation_torch.data.pipeline import BatchLoader, to_device
 from tf_depth_estimation_torch.data.synthetic import write_colon_pair_dataset
 from tf_depth_estimation_torch.geometry.warp import projective_inverse_warp
 from tf_depth_estimation_torch.infer.fast import fast_depth_forward, fold_weights, folded_forward
-from tf_depth_estimation_torch.infer.predictor import DepthPredictor, PairPredictor
+from tf_depth_estimation_torch.infer.fast_turbo import (
+    fast_turbo_forward,
+    fold_turbo,
+    folded_turbo_forward,
+)
+from tf_depth_estimation_torch.infer.predictor import (
+    DepthPredictor,
+    PairPredictor,
+    TurboPredictor,
+)
 from tf_depth_estimation_torch.losses.config import LossWeights
 from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
 from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
+from tf_depth_estimation_torch.models.layers import SlimBatchNorm
+from tf_depth_estimation_torch.models.turbo import TurboDepthNet, TurboVariant
 from tf_depth_estimation_torch.ops import _build
 from tf_depth_estimation_torch.ops.bilinear_sample import (
     bilinear_sample,
     bilinear_sample_reference,
 )
 from tf_depth_estimation_torch.ops.bilinear_sample_fused import bilinear_sample_fused
+from tf_depth_estimation_torch.ops.dot_grid import TILE as DOT_GRID_TILE
+from tf_depth_estimation_torch.ops.dot_grid import dot_grid, dot_grid_reference
+from tf_depth_estimation_torch.ops.dot_loop import TILE as DOT_LOOP_TILE
+from tf_depth_estimation_torch.ops.dot_loop import dot_loop, dot_loop_reference
 from tf_depth_estimation_torch.ops.fused_tail import (
     N_PARAMS,
     fused_tail,
@@ -151,6 +187,9 @@ from tf_depth_estimation_torch.ops.smoothness import (
     smoothness_backward_reference,
     smoothness_fused,
 )
+from tf_depth_estimation_torch.tools import probe_int8_dot, probe_int8_dot2
+from tf_depth_estimation_torch.tools.common import inputs as probe_inputs
+from tf_depth_estimation_torch.tools.common import library_product, time_2arg
 from tf_depth_estimation_torch.train import profile_step
 from tf_depth_estimation_torch.train.experiments import (
     depth_only,
@@ -169,7 +208,12 @@ from tf_depth_estimation_torch.train.steps import (
     make_single_depth_step,
 )
 from tf_depth_estimation_torch.utils.npz import load_variables_npz, save_variables_npz
-from tf_depth_estimation_torch.weights import depth_pose_from_variables, dispnet_from_variables
+from tf_depth_estimation_torch.weights import (
+    depth_pose_from_variables,
+    dispnet_from_variables,
+    state_dict_to_variables,
+    turbo_from_variables,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TEACHER = os.path.join(ROOT, "weights", "depth4_teacher_576x384.npz")
@@ -250,8 +294,28 @@ C3_PER_STEP = {"fused_fwd": 4, "fused_bwd": 4, "smoothness_fwd": 4, "smoothness_
 # (the 5-delta call at scale 0 for the pair net, delta 2 at 4 scales for the single net)
 EVAL_BATCHES = 2
 SIG_PER_EVAL_BATCH = {"pair": 1, "single": 4}
+# the tensor-core probes at the JAX probes' shapes, name -> (M, K, N, repeats):
+# tools/probe_int8_dot.py:26-27 and tools/probe_int8_dot2.py:17
+PROBE_SHAPES = {"dot_loop": (1024, 1024, 1024, 64), "dot_grid": (4096, 4096, 4096, 1)}
+# launches of each probe kernel in its tool's run: 2 cases (int8, bf16) of 1 + 8 x 5 calls
+# (tools/common.py:time_2arg)
+PROBE_TOOL_LAUNCHES = 2 * (1 + 8 * 5)
+# TurboDepthNet serving: the committed student whose weights the GPU machine's copy of
+# the tree holds (the other presets' files stay off it), and the JAX turbo bench's batch
+# (tools/bench_turbo.py:27)
+TURBO_WEIGHTS = os.path.join(ROOT, "weights", "turbo_small_distilled_576x384.npz")
+TURBO_BENCH_BATCH = 128
+# the bf16 turbo serving forward against the float32 module forward, (max, mean) abs error.
+# The mean limit is phase 5's. The max is not: TurboDepthNet rounds its head's logits and
+# disparities to bf16 (as JAX's does), and disparities in [2, 4) lie 1.56e-2 apart in
+# bf16, so the last two roundings alone can move a pixel by ~2.4e-2, the whole of phase
+# 5's 2.5e-2; on seeded uint8 frames at 576x384 the JAX package's own bf16 forward is
+# further than 2.5e-2 from its f32 module (tests/test_torch_turbo.py holds both packages
+# to these limits)
+TOL_TURBO_SERVING = (5e-2, 5e-3)
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32, PEAK_BF16, PEAK_HBM = 67e12, 989e12, 3.35e12
+PEAK_INT8 = 1979e12
 
 
 def phase_device() -> dict:
@@ -1565,11 +1629,274 @@ def phase_depth_then_cam_times(device, smi: str) -> dict:
     return out
 
 
+# ---- the tensor-core probes (kernels #6 and #7) -------------------------------------
+
+def bf16_rtol(K: int) -> float:
+    """The bf16 probes' limit, relative to max |plain|: the tensor cores add each 16-deep
+    step of a product into the float32 sum with round-toward-zero alignment and
+    normalisation (Fasi et al., "Numerical behavior of NVIDIA tensor cores", 2021), up to
+    ~2 ulp a step and K / 16 steps a product; twice that for the plain float32 product's
+    own rounding. 3.1e-5 at K = 1024, 1.2e-4 at K = 4096; a lost 64-byte stage of K
+    moves a value by 1/32 (K = 1024) or 1/128 (K = 4096)."""
+    return 4 * (K // 16) * 2.0 ** -23
+
+
+def probe_cases(device, shapes: dict = None) -> dict:
+    """(kernel name, dtype) -> (wrapper, plain version, a, b, extra args), the probes'
+    operands (``tools/common.py:inputs``) at ``shapes`` (name -> (M, K, N, repeats))."""
+    shapes = shapes or PROBE_SHAPES
+    fns = {"dot_loop": (dot_loop, dot_loop_reference), "dot_grid": (dot_grid,
+                                                                   dot_grid_reference)}
+    cases = {}
+    for name, (M, K, N, R) in shapes.items():
+        x = probe_inputs(M, K, N, device=device)
+        extra = (R,) if name == "dot_loop" else ()
+        for dt, a, b in (("int8", x["a8"], x["b8"]), ("bf16", x["abf"], x["bbf"])):
+            cases[(name, dt)] = (*fns[name], a, b, extra)
+    return cases
+
+
+def phase_probes(device, shapes: dict = None) -> dict:
+    """dot_loop and dot_grid against their plain versions at the probes' shapes, int8
+    and bf16: int8 bit-equal, bf16 within ``bf16_rtol(K)`` of max |plain|, the JAX probes'
+    scalar (the float32 sum) likewise, one launch a call on a card; a shape off the tile
+    raises. Returns (kernel, dtype) -> max abs err."""
+    launches = 1 if torch.device(device).type == "cuda" else 0
+    errs = {}
+    for (name, dt), (fn, ref, a, b, extra) in probe_cases(device, shapes).items():
+        before = fn.launches
+        got = fn(a, b, *extra)
+        calls = fn.launches - before
+        want = ref(a, b, *extra)
+        s_got, s_want = got.float().sum().item(), want.float().sum().item()
+        err = (got.double() - want.double()).abs().max().item()
+        top = want.double().abs().max().item()
+        K = a.shape[1]
+        if calls != launches:
+            raise AssertionError(f"{name} {dt}: {calls} launches in one call")
+        if dt == "int8":
+            ok = torch.equal(got, want) and s_got == s_want
+            limit = "bit-equal"
+        else:
+            tol = bf16_rtol(K)
+            ok = err <= tol * top and abs(s_got - s_want) <= tol * abs(s_want)
+            limit = f"max abs err <= {tol:.2e} x max |plain| = {tol * top:.3e}"
+        print(f"kernel {name} {dt} {tuple(a.shape)} x {tuple(b.shape)}"
+              f"{f' x {extra[0]} repeats' if extra else ''}: max abs err {err:.3e} "
+              f"({err / top:.2e} of max |plain|), f32 sums {s_got:.9e} and {s_want:.9e}; "
+              f"{limit}; {calls} launch")
+        if not ok:
+            raise AssertionError(f"{name} {dt}: max abs err {err}, sums {s_got} and "
+                                 f"{s_want}, beyond {limit}")
+        errs[(name, dt)] = err
+    for fn, tile in ((dot_loop, DOT_LOOP_TILE), (dot_grid, DOT_GRID_TILE)):
+        a = torch.ones((tile[0] + 8, tile[2]), dtype=torch.int8, device=device)
+        b = torch.ones((tile[2], tile[1]), dtype=torch.int8, device=device)
+        before = fn.launches
+        try:
+            fn(a, b)
+        except ValueError as e:
+            print(f"kernel {fn.__name__}: [{tile[0] + 8}, {tile[2]}] refused: {e}")
+        else:
+            raise AssertionError(f"{fn.__name__} took M = {tile[0] + 8}")
+        if fn.launches != before:
+            raise AssertionError(f"{fn.__name__} launched on a refused shape")
+    return errs
+
+
+def phase_probe_tools() -> dict:
+    """The probes' own entry points, ``tools/probe_int8_dot.py`` and
+    ``tools/probe_int8_dot2.py`` (the main path of kernels #6 and #7): their printed
+    lines, and the seconds a call of each case by the JAX probes' method."""
+    return {"dot_loop": probe_int8_dot.main(), "dot_grid": probe_int8_dot2.main()}
+
+
+def probe_bound(M: int, K: int, N: int, R: int, dtype: torch.dtype) -> tuple:
+    """Least time (ms) an H100 SXM needs for R products of [M, K] . [K, N]: 2 R M N K
+    operations at the int8 or bf16 tensor-core peak, or A and B read once and the int32 or
+    float32 output written once."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    t_ops = 2.0 * R * M * N * K / (PEAK_INT8 if dtype == torch.int8 else PEAK_BF16)
+    t_bytes = ((M * K + K * N) * esize + M * N * 4) / PEAK_HBM
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def best_ms(fn, iters: int = 5, windows: int = 5) -> float:
+    """The best of ``windows`` CUDA-event windows of ``iters`` calls (ms a call)."""
+    return min(time_ms(fn, iters, warmup=1 if w else 2) for w in range(windows))
+
+
+def phase_probe_times(device, smi: str) -> dict:
+    """For each probe kernel and dtype: the kernel alone (best of 5 CUDA-event windows),
+    its TOPS and share of the bound, the plain version, the library yardstick (one
+    ``tools/common.py:library_product`` call for dot_grid, R in turn for dot_loop, as the
+    JAX probe's ``make_xla``), the JAX-shaped call (kernel, float32 sum, ``.item()``, by
+    ``tools/common.py:time_2arg``), and the int8 / bf16 ratios."""
+    library = {"dot_loop": probe_int8_dot.library_loop,
+               "dot_grid": lambda a, b: library_product(a.dtype)[0](a, b)}
+    rows = {}
+    for (name, dt), (fn, ref, a, b, extra) in probe_cases(device).items():
+        M, K = a.shape
+        N, R = b.shape[1], (extra[0] if extra else 1)
+        ms = best_ms(lambda: fn(a, b, *extra))
+        plain = best_ms(lambda: ref(a, b, *extra), iters=2, windows=2)
+        lib = best_ms(lambda: library[name](a, b))
+        shaped = time_2arg(lambda x, y: fn(x, y, *extra).float().sum(), a, b) * 1e3
+        bound, by = probe_bound(M, K, N, R, a.dtype)
+        tops = 2.0 * R * M * N * K / ms / 1e9
+        rows[(name, dt)] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                            "bound_ms": bound, "bound_by": by, "jax_shaped_ms": shaped,
+                            "tops": tops}
+        print(f"time {name} {dt} ({M}x{K} . {K}x{N}, R={R}): kernel {ms:.4f} ms "
+              f"({tops:.1f} T(FL)OP/s, {bound / ms * 100:.1f} % of the bound "
+              f"{bound:.4f} ms, {by}), plain {plain:.4f} ms, library {lib:.4f} ms "
+              f"({library_product(a.dtype)[1]}{' x R in turn' if R > 1 else ''}), "
+              f"kernel + f32 sum + .item() {shaped:.4f} ms [{smi}]")
+    for name in PROBE_SHAPES:
+        k = rows[(name, "bf16")]["ms"] / rows[(name, "int8")]["ms"]
+        lib = rows[(name, "bf16")]["library_ms"] / rows[(name, "int8")]["library_ms"]
+        print(f"time {name}: int8 / bf16 speed-up {k:.2f}x for the kernel, {lib:.2f}x for "
+              f"the library (data sheet: 1,979 / 989 = 2.00x) [{smi}]")
+        rows[(name, "ratio")] = {"kernel": k, "library": lib}
+    return rows
+
+
+# ---- TurboDepthNet serving -------------------------------------------------------------
+
+def turbo_hw(name: str) -> tuple:
+    """(H, W) of a preset's committed weights: 240x720 for colon, 384x576 for the rest."""
+    return (240, 720) if name == "colon" else (HEIGHT, WIDTH)
+
+
+def turbo_weights(name: str) -> str:
+    H, W = turbo_hw(name)
+    return os.path.join(ROOT, "weights", f"turbo_{name}_distilled_{W}x{H}.npz")
+
+
+def seeded_turbo_variables(variant: TurboVariant, frames: torch.Tensor,
+                           seed: int = SEED) -> dict:
+    """A seeded init of ``variant`` whose running statistics are the batch statistics of
+    ``frames`` (one train-mode pass at decay 0), as a JAX variables tree: the fold then
+    meets statistics that are not the init's zeros and ones."""
+    model = TurboDepthNet(variant, generator=torch.Generator().manual_seed(seed))
+    model = model.to(frames.device)
+    bns = [m for m in model.modules() if isinstance(m, SlimBatchNorm)]
+    for m in bns:
+        m.momentum = 0.0
+    with torch.no_grad():
+        model.train()(frames.float())
+    return state_dict_to_variables(model.state_dict())
+
+
+def phase_turbo_parity(device, hw=turbo_hw, batch: int = 2) -> dict:
+    """``fast_turbo_forward`` (BN folded) against the module's eval ``full_only`` forward
+    for each of the nine presets, float32, at rtol = atol = TOL_FORWARD: the committed
+    weights where the tree has them, else a seeded init with set statistics."""
+    worst = {}
+    for name in TurboVariant.PRESETS:
+        v, (H, W) = TurboVariant.by_name(name), hw(name)
+        frames = torch.from_numpy(_frames(batch, H, W, seed=SEED + 11)).to(device)
+        path = turbo_weights(name)
+        if os.path.exists(path):
+            variables, source = load_variables_npz(path)[0], os.path.relpath(path, ROOT)
+        else:
+            variables, source = seeded_turbo_variables(v, frames), "seeded init"
+        with torch.inference_mode():
+            got = fast_turbo_forward(variables, frames, v, dtype=torch.float32,
+                                     device=device)
+            (ref,) = turbo_from_variables(variables, v, device=device)(frames,
+                                                                       full_only=True)
+        if got.shape != (batch, H, W, 1) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"turbo-{name}: shape {tuple(got.shape)} or non-finite")
+        err = (got - ref).abs().max().item()
+        if not torch.allclose(got, ref, rtol=TOL_FORWARD, atol=TOL_FORWARD):
+            raise AssertionError(f"turbo-{name}: fast forward max abs err {err} beyond "
+                                 f"rtol = atol = {TOL_FORWARD}")
+        worst[name] = err
+        print(f"turbo forward f32 {name} {H}x{W} B={batch} ({source}): fast_turbo_forward "
+              f"matches the module's full_only forward, max abs err {err:.3e} (rtol = atol "
+              f"= {TOL_FORWARD})")
+    return worst
+
+
+def phase_turbo_serving(device, smi: str = "", height: int = HEIGHT, width: int = WIDTH,
+                        batch: int = 8, bench_batch: int = TURBO_BENCH_BATCH) -> dict:
+    """TurboPredictor (bf16, the folded forward) over the committed turbo-small weights
+    answers requests of ``batch`` (at least 5), 5 and 1 uint8 frames, each held against
+    the f32 module forward at TOL_TURBO_SERVING; then frames/s of the bf16 folded
+    forward at ``bench_batch`` on frames already on the device, and of the predictor from
+    host frames. No kernel of this package lies on this path (cuDNN convolutions)."""
+    variables, meta = load_variables_npz(TURBO_WEIGHTS)
+    v = TurboVariant.by_name(meta["variant"])
+    frames = _frames(batch, height, width, seed=SEED + 12)
+    with torch.inference_mode():
+        model = turbo_from_variables(variables, v, device=device)
+        ref = model(torch.from_numpy(frames).to(device), full_only=True)[0][..., 0]
+        ref = ref.cpu().numpy()
+    pred = TurboPredictor(variables["params"], variables["batch_stats"], variant=v,
+                          height=height, width=width, batch_size=batch,
+                          dtype=torch.bfloat16, device=device)
+    full = None
+    for n in (batch, 5, 1):
+        t0 = time.perf_counter()
+        out = pred.predict_array(frames[:n])
+        ms = (time.perf_counter() - t0) * 1e3
+        if out.shape != (n, height, width) or not np.isfinite(out).all():
+            raise AssertionError(f"turbo serving {n} frames: shape {out.shape} or "
+                                 f"non-finite")
+        diff = np.abs(out - ref[:n])
+        err, mean = float(diff.max()), float(diff.mean())
+        if err > TOL_TURBO_SERVING[0] or mean > TOL_TURBO_SERVING[1]:
+            raise AssertionError(f"turbo serving {n} frames: abs err max {err}, mean "
+                                 f"{mean} to the f32 module forward beyond "
+                                 f"{TOL_TURBO_SERVING}")
+        full = out if full is None else full
+        if n < batch and 1 << (n - 1).bit_length() == batch:
+            pad_diff = float(np.abs(out - full[:n]).max())
+            if pad_diff != 0.0:
+                raise AssertionError(f"turbo serving {n} frames differs from the full "
+                                     f"batch by {pad_diff}")
+        print(f"turbo serving ({meta['variant']}, {os.path.relpath(TURBO_WEIGHTS, ROOT)}): "
+              f"{n} frames -> {out.shape} float32, finite, range [{out.min():.3f}, "
+              f"{out.max():.3f}], {ms:.1f} ms host clock, abs err max {err:.3e}, mean "
+              f"{mean:.3e} to the f32 module forward (tolerance max "
+              f"{TOL_TURBO_SERVING[0]:.1e}, mean {TOL_TURBO_SERVING[1]:.1e}); no kernel of "
+              f"this package on this path")
+    many = _frames(bench_batch, height, width, seed=SEED + 13)
+    folded = fold_turbo(variables, dtype=torch.bfloat16, device=device)
+    x = torch.from_numpy(many).to(device)
+    cuda = torch.device(device).type == "cuda"
+    with torch.inference_mode():
+        fwd = lambda: folded_turbo_forward(folded, x, v)
+        if cuda:
+            ms = time_ms(fwd, 5)
+        else:
+            fwd()
+            t0 = time.perf_counter()
+            fwd()
+            ms = (time.perf_counter() - t0) * 1e3
+    bench = TurboPredictor(variables["params"], variables["batch_stats"], variant=v,
+                           height=height, width=width, batch_size=bench_batch,
+                           dtype=torch.bfloat16, device=device)
+    bench.predict_array(many)                              # warm-up
+    t0 = time.perf_counter()
+    bench.predict_array(many)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    print(f"time turbo-{v.name} bf16 {height}x{width} B={bench_batch}: folded forward "
+          f"{ms:.3f} ms/batch, {bench_batch / ms * 1e3:.1f} frames/s "
+          f"({'CUDA events' if cuda else 'host clock'}); TurboPredictor from uint8 host "
+          f"frames {host_ms:.1f} ms host clock, {bench_batch / host_ms * 1e3:.1f} frames/s "
+          f"[{smi}]")
+    return {"frames": batch + 5 + 1, "ms": ms, "frames_per_s": bench_batch / ms * 1e3,
+            "host_frames_per_s": bench_batch / host_ms * 1e3}
+
+
 def reset_counts() -> None:
     fused_tail.launches = bilinear_sample.launches = 0
     smoothness_fused.launches = smoothness_fused.backward_launches = 0
     sig_l2_fused.launches = sig_l2_fused.backward_launches = 0
     bilinear_sample_fused.launches = bilinear_sample_fused.backward_launches = 0
+    dot_loop.launches = dot_grid.launches = 0
     bilinear_sample_reference.calls = 0
 
 
@@ -1583,6 +1910,7 @@ def read_counts(sync: bool = True) -> dict:
             "sig_fwd": sig_l2_fused.launches, "sig_bwd": sig_l2_fused.backward_launches,
             "fused_fwd": bilinear_sample_fused.launches,
             "fused_bwd": bilinear_sample_fused.backward_launches,
+            "dot_loop": dot_loop.launches, "dot_grid": dot_grid.launches,
             "plain_samples": bilinear_sample_reference.calls}
 
 
@@ -1705,6 +2033,27 @@ def main() -> None:
     phase_depth_then_cam_times("cuda", info["smi"])
     stamp("config-3 step parity and times")
 
+    probe_errs = phase_probes("cuda")
+    reset_counts()  # two main paths: the probes' own entry points
+    phase_probe_tools()
+    probe_counts = read_counts()
+    print(f"probe tools launches: {probe_counts} [{info['smi']}]")
+    for name in PROBE_SHAPES:
+        if probe_counts[name] != PROBE_TOOL_LAUNCHES:
+            raise AssertionError(f"the {name} probe launched {probe_counts[name]} times, "
+                                 f"not {PROBE_TOOL_LAUNCHES}")
+    prow = phase_probe_times("cuda", info["smi"])
+    stamp("probe checks and times")
+    phase_turbo_parity("cuda")
+    reset_counts()  # a main path: turbo serving
+    phase_turbo_serving("cuda", info["smi"])
+    turbo_counts = read_counts()
+    print(f"turbo serving launches: {turbo_counts} (no kernel of this package on this "
+          f"path) [{info['smi']}]")
+    if any(turbo_counts.values()):
+        raise AssertionError(f"turbo serving launched {turbo_counts}")
+    stamp("turbo parity and serving")
+
     kernels = [{
         "name": "fused_tail", "route": "cuda",
         "source": "tf_depth_estimation_torch/csrc/fused_tail.cu",
@@ -1760,6 +2109,22 @@ def main() -> None:
         # grid: the closest library call, not the same function
         "library_ms": frow["grid_sample_fwdbwd"],
     }]
+    for name, replaces in (("dot_loop", "tools/probe_int8_dot.py:29"),
+                           ("dot_grid", "tools/probe_int8_dot2.py:60")):
+        # int8, the probes' question, at their shapes; bf16 beside it; launches: the
+        # probe tool's run (both dtypes); library: torch._int_mm (R in turn for dot_loop)
+        row, bf16 = prow[(name, "int8")], prow[(name, "bf16")]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tf_depth_estimation_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": probe_counts[name],
+            "max_abs_err": probe_errs[(name, "int8")], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "bf16": {"max_abs_err": probe_errs[(name, "bf16")], "ms": bf16["ms"],
+                     "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
+                     "library_ms": bf16["library_ms"]},
+        })
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {info['smi']}")
     print(json.dumps({"kernels": kernels}))

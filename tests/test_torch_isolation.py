@@ -2,8 +2,9 @@
 machine has none of them. One child process per main path imports every port module and
 drives the path on the CPU through chip_smoke.py: serving, one training step of config 4,
 one of config 2 with a validation, split_training's two phases, one step of config 3 with
-the eval harness's two nets, and pair serving of the full-resolution and the truncated
-DepthPoseNet.
+the eval harness's two nets, pair serving of the full-resolution and the truncated
+DepthPoseNet, the nine TurboDepthNet presets' folded forward and turbo serving, and the
+tensor-core probes' plain versions (the probes' entry points refuse to run without a card).
 
 The children run beside the other pytest workers, so each keeps PyTorch to two threads:
 one child with every path and PyTorch's default of a thread per core took ~4x its time
@@ -95,6 +96,28 @@ for full in (True, False):
                                           dtype=torch.float32)
     assert served["frames_per_s"] > 0 and fused_tail.launches == 0, served
 """,
+    "turbo_serving": r"""
+small = lambda name: (48, 96) if name == "colon" else (64, 96)
+worst = chip_smoke.phase_turbo_parity("cpu", hw=small)
+served = chip_smoke.phase_turbo_serving("cpu", height=64, width=96, batch=8, bench_batch=8)
+assert sorted(worst) == sorted(chip_smoke.TurboVariant.PRESETS) and served["frames"] == 14
+assert not any(chip_smoke.read_counts().values()), chip_smoke.read_counts()
+""",
+    # on the CPU the wrappers run their plain versions; the probes have no CPU path
+    "dot_probes": r"""
+from tf_depth_estimation_torch.tools import probe_int8_dot, probe_int8_dot2
+errs = chip_smoke.phase_probes("cpu", {"dot_loop": (64, 128, 64, 3),
+                                       "dot_grid": (128, 64, 256, 1)})
+assert set(errs.values()) == {0.0}, errs
+for probe in (probe_int8_dot, probe_int8_dot2):
+    try:
+        probe.main()
+    except SystemExit as e:
+        assert "NVIDIA GPU" in str(e), e
+    else:
+        raise AssertionError("a probe ran without a card")
+assert chip_smoke.read_counts()["dot_loop"] == chip_smoke.read_counts()["dot_grid"] == 0
+""",
 }
 
 
@@ -133,7 +156,13 @@ def test_every_port_module_is_imported_by_the_child():
             "tf_depth_estimation_torch.ops.bilinear_sample_fused",
             "tf_depth_estimation_torch.train.experiments.depth_then_cam",
             "tf_depth_estimation_torch.train.experiments.eval_harness",
-            "tf_depth_estimation_torch.infer.fast_pose"} <= names
+            "tf_depth_estimation_torch.infer.fast_pose",
+            "tf_depth_estimation_torch.models.turbo",
+            "tf_depth_estimation_torch.infer.fast_turbo",
+            "tf_depth_estimation_torch.ops.dot_loop",
+            "tf_depth_estimation_torch.ops.dot_grid",
+            "tf_depth_estimation_torch.tools.probe_int8_dot",
+            "tf_depth_estimation_torch.tools.probe_int8_dot2"} <= names
 
 
 def test_no_port_file_names_jax_in_an_import():

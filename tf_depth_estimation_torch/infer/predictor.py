@@ -1,5 +1,5 @@
 """Batched depth and pose inference: the port of ``tf_depth_estimation_tpu/infer/
-predictor.py``'s ``DepthPredictor`` and ``PairPredictor``.
+predictor.py``'s ``DepthPredictor``, ``TurboPredictor`` and ``PairPredictor``.
 
 Frames are batched on the host; full batches run at ``batch_size`` and the ragged tail is
 padded only up to the next power of two, so the tail wastes less than itself in compute.
@@ -21,9 +21,11 @@ import torch
 
 from tf_depth_estimation_torch.infer.fast import fold_weights, folded_forward
 from tf_depth_estimation_torch.infer.fast_pose import fold_depth_pose, folded_depth_pose_forward
+from tf_depth_estimation_torch.infer.fast_turbo import fold_turbo, folded_turbo_forward
 from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
 from tf_depth_estimation_torch.models.dispnet import DispNetVariant
-from tf_depth_estimation_torch.weights import variables_to_state_dict
+from tf_depth_estimation_torch.models.turbo import TurboVariant
+from tf_depth_estimation_torch.weights import turbo_from_variables, variables_to_state_dict
 
 
 def _load_frame(path: str, height: int, width: int) -> np.ndarray:
@@ -100,30 +102,15 @@ def _resolve_use_fast(use_fast: Optional[bool], batch_stats, height: int,
     return use_fast
 
 
-class DepthPredictor:
-    """Single-image disparity inference with depth4 DispNet (ref ``batch_prediction.py``).
+class _SingleImagePredictor:
+    """The array and directory contract of the single-image predictors: ``_fwd`` maps a
+    [b, H, W, 3] batch on ``device`` to [b, H, W] disparities."""
 
-    ``params`` / ``batch_stats`` are the JAX variables' collections (numpy trees, e.g.
-    from ``utils.npz.load_variables_npz``). The forward is ``infer/fast.py`` with BN
-    folded once here, and the decoder tail runs as one CUDA kernel (``ops/fused_tail.py``).
-    """
-
-    def __init__(self, params, batch_stats, *, height: int = 224, width: int = 224,
-                 variant: Optional[DispNetVariant] = None, batch_size: int = 32,
-                 dtype: torch.dtype = torch.bfloat16,
-                 device: Union[str, torch.device] = "cuda"):
-        self.height, self.width, self.batch_size = height, width, batch_size
-        self.device = torch.device(device)
-        v = variant or DispNetVariant.depth4()
-        folded = fold_weights({"params": params, "batch_stats": batch_stats},
-                              dtype=dtype, device=self.device)
-
-        @torch.inference_mode()
-        def fwd(x: torch.Tensor) -> torch.Tensor:
-            return folded_forward(folded, x, disp_scaling=v.disp_scaling,
-                                  min_disp=v.min_disp)[0][..., 0]
-
-        self._fwd = fwd
+    height: int
+    width: int
+    batch_size: int
+    device: torch.device
+    _fwd: Callable[[torch.Tensor], torch.Tensor]
 
     def predict_array(self, frames: np.ndarray) -> np.ndarray:
         """[N, H, W, 3] float32 or uint8 -> [N, H, W] float32 disparity."""
@@ -150,6 +137,63 @@ class DepthPredictor:
                 _postprocess(z, out_height, out_width, bilateral).tofile(out)
                 written.append(out)
         return written
+
+
+class DepthPredictor(_SingleImagePredictor):
+    """Single-image disparity inference with depth4 DispNet (ref ``batch_prediction.py``).
+
+    ``params`` / ``batch_stats`` are the JAX variables' collections (numpy trees, e.g.
+    from ``utils.npz.load_variables_npz``). The forward is ``infer/fast.py`` with BN
+    folded once here, and the decoder tail runs as one CUDA kernel (``ops/fused_tail.py``).
+    """
+
+    def __init__(self, params, batch_stats, *, height: int = 224, width: int = 224,
+                 variant: Optional[DispNetVariant] = None, batch_size: int = 32,
+                 dtype: torch.dtype = torch.bfloat16,
+                 device: Union[str, torch.device] = "cuda"):
+        self.height, self.width, self.batch_size = height, width, batch_size
+        self.device = torch.device(device)
+        v = variant or DispNetVariant.depth4()
+        folded = fold_weights({"params": params, "batch_stats": batch_stats},
+                              dtype=dtype, device=self.device)
+
+        @torch.inference_mode()
+        def fwd(x: torch.Tensor) -> torch.Tensor:
+            return folded_forward(folded, x, disp_scaling=v.disp_scaling,
+                                  min_disp=v.min_disp)[0][..., 0]
+
+        self._fwd = fwd
+
+
+class TurboPredictor(_SingleImagePredictor):
+    """Serving of a TurboDepthNet student (JAX ``infer/predictor.py:TurboPredictor``).
+
+    Raw 0..255 frames, as the reference feeds them (``batch_prediction.py:59-69``, no
+    /255) and as ``distill_turbo.py`` distils on them; integer frames cross to the device
+    as they are and become ``dtype`` there. ``params`` / ``batch_stats`` are the JAX
+    variables' collections (numpy trees). The forward is ``infer/fast_turbo.py`` with BN
+    folded once here (``use_fast=True``, the default), or the module's eval ``full_only``
+    forward in ``dtype``; both are cuDNN convolutions, with no kernel of this package.
+    """
+
+    def __init__(self, params, batch_stats, *, variant: Optional[TurboVariant] = None,
+                 height: int = 384, width: int = 576, batch_size: int = 128,
+                 dtype: torch.dtype = torch.bfloat16, use_fast: bool = True,
+                 device: Union[str, torch.device] = "cuda"):
+        self.height, self.width, self.batch_size = height, width, batch_size
+        self.device = torch.device(device)
+        v = variant or TurboVariant.base()
+        v.check_size(height, width)
+        variables = {"params": params, "batch_stats": batch_stats}
+        self.uses_fast_path = use_fast
+        if use_fast:
+            folded = fold_turbo(variables, dtype=dtype, device=self.device)
+            forward = lambda x: folded_turbo_forward(folded, x, v)[..., 0]
+        else:
+            model = turbo_from_variables(variables, v, device=self.device)
+            model.dtype = dtype
+            forward = lambda x: model(x, full_only=True)[0][..., 0]
+        self._fwd = torch.inference_mode()(forward)
 
 
 class PairPredictor:

@@ -139,15 +139,21 @@ class SlimBatchNorm(nn.Module):
 
 
 class SlimConv(nn.Module):
-    """conv (or TF transposed conv) -> slim batch norm -> ReLU."""
+    """conv (or TF transposed conv) -> slim batch norm -> ReLU, or without the ReLU
+    (``relu=False``: TurboDepthNet's laterals and upsamples). JAX's
+    ``SlimConv(use_bn=False)``, a conv with a bias and no batch norm, is ``TFConv2d(...,
+    bias=True)`` here, as the linear heads of every port net are, so that its weights
+    keep the weight bridge's ``<layer>.weight`` / ``<layer>.bias`` names."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  transpose: bool = False, generator: Optional[torch.Generator] = None,
-                 bn_momentum: float = 0.99):
+                 bn_momentum: float = 0.99, relu: bool = True):
         super().__init__()
         self.conv = (TFConvTranspose(cin, cout, k, stride, generator) if transpose
                      else TFConv2d(cin, cout, k, stride, generator=generator))
         self.bn = SlimBatchNorm(cout, bn_momentum)
+        self.relu = relu
 
     def forward(self, x):
-        return torch.relu(self.bn(self.conv(x)))
+        y = self.bn(self.conv(x))
+        return torch.relu(y) if self.relu else y

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and becomes its own shared library
 ``build/torch_kernels/<name>-<hash>.so`` at the root of the checkout; the hash covers the
-source and the flags, so an edited source builds anew and an unchanged one loads at once.
+source, the headers of ``csrc/`` (``*.cuh``) and the flags, so an edited source or header
+builds anew and an unchanged one loads at once.
 No source includes PyTorch's headers: with them one small file took minutes to compile,
 without them seconds. ``build_all`` starts one ``nvcc`` for each source of ``KERNELS``,
 all at once. Everything here runs at first use, never at import.
@@ -10,6 +11,7 @@ all at once. Everything here runs at first use, never at import.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -25,7 +27,8 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shar
          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # every source of csrc/, by name
-KERNELS = ("fused_tail", "bilinear_sample", "smoothness", "sig_l2", "bilinear_sample_fused")
+KERNELS = ("fused_tail", "bilinear_sample", "smoothness", "sig_l2", "bilinear_sample_fused",
+           "dot_loop", "dot_grid")
 
 # name -> {"lib": ctypes.CDLL, "seconds": nvcc wall time (0 if cached), "log": nvcc output}
 _LOADED: Dict[str, dict] = {}
@@ -56,8 +59,11 @@ def build(name: str) -> dict:
     if name in _LOADED:
         return _LOADED[name]
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     target = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
     seconds, log = 0.0, ""
     if not os.path.exists(target):

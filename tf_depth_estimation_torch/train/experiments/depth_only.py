@@ -37,12 +37,14 @@ def parse_args(argv=None):
     p = base_parser(__doc__, batch_size=10, max_steps=20000)
     p.add_argument("--image_height", type=int, default=240)
     p.add_argument("--image_width", type=int, default=720)
-    p.add_argument("--turbo", default="", help="not ported: TurboDepthNet comes with the "
-                                               "turbo and distillation slice")
+    p.add_argument("--turbo", default="", help="not ported: TurboDepthNet is ported for "
+                                               "serving; its training comes with the "
+                                               "distillation slice")
     args = parse(p, argv)
     if args.turbo:
-        p.error("--turbo is not ported to tf_depth_estimation_torch yet: TurboDepthNet "
-                "comes with the turbo and distillation slice")
+        p.error("--turbo is not ported to tf_depth_estimation_torch yet: TurboDepthNet is "
+                "ported for serving (infer/cli.py --mode turbo), and its training comes "
+                "with the distillation slice")
     return args
 
 

@@ -1,5 +1,5 @@
-"""The weight bridge: JAX variables tree <-> the port's ``DispNet`` and ``DepthPoseNet``
-state dicts.
+"""The weight bridge: JAX variables tree <-> the port's ``DispNet``, ``DepthPoseNet`` and
+``TurboDepthNet`` state dicts.
 
 A layer of the JAX tree (numpy arrays from a ``.npz`` or from a flax ``init``) is a node
 holding ``Conv_0`` or ``TFConvTranspose_0`` (``kernel``, and ``bias`` for a linear head)
@@ -7,8 +7,8 @@ and, when a batch norm follows, ``BatchNorm_0/bias`` in ``params`` and
 ``BatchNorm_0/{mean,var}`` at the same path in ``batch_stats``. The state dict names each
 layer by the same path joined with dots: ``DispNet``'s layers sit under the parts
 ``encoder``, ``decoder`` and, for depth10_flow, ``flow_decoder`` (``decoder.upcnv7``,
-``flow_decoder.disp1_opt``), ``DepthPoseNet``'s at the top (``cnv1``, ``exp_upcnv5``,
-``pose_pred``). Conv kernels are HWIO and become OIHW. TF transposed-conv kernels (the
+``flow_decoder.disp1_opt``), ``DepthPoseNet``'s and ``TurboDepthNet``'s at the top
+(``cnv1``, ``exp_upcnv5``, ``pose_pred``; ``stem``, ``up1``, ``disp1``). Conv kernels are HWIO and become OIHW. TF transposed-conv kernels (the
 ``upcnv`` layers) are ``[kh, kw, out, in]`` and become ``conv_transpose2d``'s
 ``[in, out, kh, kw]``; both are the same axis permutation, and neither is flipped
 (``models/layers.py`` says why).
@@ -22,6 +22,7 @@ import torch
 
 from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
 from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
+from tf_depth_estimation_torch.models.turbo import TurboDepthNet, TurboVariant
 
 _TO_TORCH = (3, 2, 0, 1)    # HWIO -> OIHW, and [kh, kw, out, in] -> [in, out, kh, kw]
 _TO_JAX = (2, 3, 1, 0)
@@ -106,5 +107,14 @@ def depth_pose_from_variables(variables: Dict[str, Any], *, device="cuda") -> De
     params = variables["params"]
     model = DepthPoseNet(full_resolution="disp1" in params,
                          num_source=np.shape(params["pose_pred"]["Conv_0"]["kernel"])[3] // 6)
+    model.load_state_dict(variables_to_state_dict(variables), strict=True)
+    return model.eval().to(device)
+
+
+def turbo_from_variables(variables: Dict[str, Any], variant: TurboVariant, *,
+                         device="cuda") -> TurboDepthNet:
+    """An eval-mode float32 ``TurboDepthNet(variant)`` on ``device`` holding ``variables``
+    (strict load: a tree of another variant raises ``RuntimeError``)."""
+    model = TurboDepthNet(variant)
     model.load_state_dict(variables_to_state_dict(variables), strict=True)
     return model.eval().to(device)
