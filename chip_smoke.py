@@ -100,17 +100,24 @@ Phases, each raising on failure:
      config-3 step's 4 calls, forward and forward + backward; ms/step of the bf16 step with
      the fused and with the plain sampler, in turns of 5 steps; launches a step from
      ``train/profile_step.py``.
- 23. kernel vs plain: ``dot_loop`` (1024^3, R = 64) and ``dot_grid`` (4096^3) against
-     their plain versions on the probes' operands, int8 and bf16: int8 bit-equal, bf16
-     within ``bf16_rtol(K)`` of max |plain|, the probes' float32 sums likewise, one launch
-     a call; a shape off the tile raises;
+ 23. kernel vs plain: ``cuobjdump -sass`` on the built ``dot_loop`` and ``dot_grid``
+     libraries, with each kernel's HGMMA, IGMMA, UTMALDG, UTMASTG, HMMA and IMMA counts
+     and its registers and spills (raising unless the bf16 products run on HGMMA and the
+     int8 ones on IGMMA, each loading through UTMALDG, with no HMMA or IMMA left); then
+     ``dot_loop`` (1024^3, R = 64) and ``dot_grid`` (4096^3) against their plain versions
+     on the probes' operands, int8 and bf16: int8 bit-equal, bf16 within
+     ``bf16_rtol(K)`` of max |plain|, the probes' float32 sums likewise, one product
+     launch a call, a transpose of B before each int8 one and the loop's sum of its K
+     parts after it; a shape off the tile raises;
  24. the probes, two main paths: ``tools/probe_int8_dot.py`` and
      ``tools/probe_int8_dot2.py`` of the port run as a user runs them, the launch counts
-     set to 0 before and read after (2 x 41 launches of each kernel); then times: each
-     kernel alone (CUDA events, best of 5 windows), its TOPS and share of the bound, the
-     plain version, the library yardstick (``torch._int_mm``, ``torch.mm`` with float32
-     output; R in turn for the loop), the call as the JAX probes time it (kernel, float32
-     sum, ``.item()``) and the int8 / bf16 speed-ups;
+     set to 0 before and read after (2 x 41 launches of each kernel, 41 transposes of B
+     each, 82 sums of the loop's parts); then times: each kernel alone (CUDA events, best
+     of 5 windows), its TOPS and share of the bound, the plain version, the library
+     yardstick (``torch._int_mm``, ``torch.mm`` with float32 output; R in turn for the
+     loop), the call as the JAX probes time it (kernel, float32 sum, ``.item()``) and the
+     int8 / bf16 speed-ups; beside them ``torch._int_mm`` with B column-major, another
+     layout than the probes';
  25. turbo forward parity: ``fast_turbo_forward`` against the module's eval ``full_only``
      forward for the nine presets, B=2, float32 (colon at 240x720, the others at
      576x384) at rtol = atol = 2e-4, on the committed weights where the machine has them
@@ -136,6 +143,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import tempfile
 import time
@@ -298,8 +306,14 @@ SIG_PER_EVAL_BATCH = {"pair": 1, "single": 4}
 # tools/probe_int8_dot.py:26-27 and tools/probe_int8_dot2.py:17
 PROBE_SHAPES = {"dot_loop": (1024, 1024, 1024, 64), "dot_grid": (4096, 4096, 4096, 1)}
 # launches of each probe kernel in its tool's run: 2 cases (int8, bf16) of 1 + 8 x 5 calls
-# (tools/common.py:time_2arg)
+# (tools/common.py:time_2arg); a transpose of B before each int8 product; the loop splits
+# K = 1024 into 2 (int8) or 4 (bf16) parts, and adds them after each product
 PROBE_TOOL_LAUNCHES = 2 * (1 + 8 * 5)
+PROBE_TOOL_TRANSPOSES = 1 + 8 * 5
+PROBE_TOOL_REDUCES = {"dot_loop": PROBE_TOOL_LAUNCHES, "dot_grid": 0}
+# the SASS instructions counted in the probe libraries: wgmma (HGMMA bf16, IGMMA int8),
+# TMA loads and stores, and mma.sync (HMMA, IMMA), which wmma compiles to
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "HMMA", "IMMA")
 # TurboDepthNet serving: the committed student whose weights the GPU machine's copy of
 # the tree holds (the other presets' files stay off it), and the JAX turbo bench's batch
 # (tools/bench_turbo.py:27)
@@ -1656,24 +1670,86 @@ def probe_cases(device, shapes: dict = None) -> dict:
     return cases
 
 
+def _kernel_label(mangled: str) -> str:
+    """A readable name for a probe library's kernel: dot_kernel's element type (int8
+    reads B^T, bf16 B), tile width and loop or grid; the transpose and reduce kernels."""
+    m = re.search(r"dot_kernelI(13__nv_bfloat16|a)Li(\d+)ELb([01])E", mangled)
+    if m:
+        return (f"dot_kernel<{'bf16' if m.group(1) != 'a' else 'int8'}, BN={m.group(2)}, "
+                f"{'loop' if m.group(3) == '1' else 'grid'}>")
+    for kind in ("transpose_kernel", "reduce_kernel"):
+        if kind in mangled:
+            return f"{kind}<{mangled.split(kind + 'I', 1)[1][:1]}>"
+    return mangled
+
+
+def phase_sass() -> dict:
+    """``cuobjdump -sass`` on the built ``dot_grid`` and ``dot_loop`` libraries: each
+    kernel's count of ``SASS_OPS``, and its registers and spills from nvcc's ``-Xptxas
+    -v`` lines. Raises unless each library's bf16 products run on HGMMA and its int8
+    products on IGMMA, each product kernel loads through UTMALDG, and neither library
+    holds an HMMA or IMMA (wmma's mma.sync). Returns label -> counts."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out = {}
+    for name in ("dot_grid", "dot_loop"):
+        entry = _build.build(name)
+        sass = subprocess.run([cuobjdump, "-sass", entry["path"]], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        regs, fn = {}, None
+        for line in entry["log"].splitlines():
+            if "Function properties for" in line:
+                fn = line.split("Function properties for", 1)[1].strip()
+            elif fn and "spill stores" in line:
+                regs[fn] = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            elif fn and "Used" in line and "registers" in line:
+                regs[fn] = [re.search(r"Used (\d+) registers", line).group(1)] + regs.get(fn, [])
+        kinds = set()
+        for block in re.split(r"\n\s*Function : ", sass)[1:]:
+            mangled = block.split("\n", 1)[0].strip()
+            counts = {op: len(re.findall(rf"\b{op}\b", block)) for op in SASS_OPS}
+            label = _kernel_label(mangled)
+            r = regs.get(mangled, ["?", "?", "?"])
+            print(f"sass {name} {label}: " + ", ".join(f"{k} {v}" for k, v in counts.items())
+                  + f"; {r[0]} registers, {r[1] if len(r) > 1 else '?'} bytes spill stores, "
+                  f"{r[2] if len(r) > 2 else '?'} bytes spill loads")
+            if counts["HMMA"] or counts["IMMA"]:
+                raise AssertionError(f"{name}: {label} holds mma.sync: {counts}")
+            if label.startswith("dot_kernel"):
+                dtype = "bf16" if "bf16" in label else "int8"
+                wgmma = counts["HGMMA" if dtype == "bf16" else "IGMMA"]
+                if not wgmma or not counts["UTMALDG"]:
+                    raise AssertionError(f"{name}: {label} is not wgmma fed by TMA: {counts}")
+                kinds.add(dtype)
+            out[(name, label)] = counts
+        if kinds != {"bf16", "int8"}:
+            raise AssertionError(f"{name}: product kernels for {sorted(kinds)} only")
+    return out
+
+
 def phase_probes(device, shapes: dict = None) -> dict:
     """dot_loop and dot_grid against their plain versions at the probes' shapes, int8
     and bf16: int8 bit-equal, bf16 within ``bf16_rtol(K)`` of max |plain|, the JAX probes'
-    scalar (the float32 sum) likewise, one launch a call on a card; a shape off the tile
+    scalar (the float32 sum) likewise; on a card one product launch a call, a transpose
+    of B before an int8 one, and for the loop one sum of its K parts after it (K = 1024
+    is 8 or 16 stages of 128 bytes, split into 2 or 4 parts); a shape off the tile
     raises. Returns (kernel, dtype) -> max abs err."""
     launches = 1 if torch.device(device).type == "cuda" else 0
     errs = {}
     for (name, dt), (fn, ref, a, b, extra) in probe_cases(device, shapes).items():
-        before = fn.launches
+        before = (fn.launches, fn.transposes, getattr(fn, "reduces", 0))
         got = fn(a, b, *extra)
-        calls = fn.launches - before
+        calls = fn.launches - before[0]
+        more = (fn.transposes - before[1], getattr(fn, "reduces", 0) - before[2])
+        want_more = (launches * int(dt == "int8"),
+                     launches * int(name == "dot_loop"))
         want = ref(a, b, *extra)
         s_got, s_want = got.float().sum().item(), want.float().sum().item()
         err = (got.double() - want.double()).abs().max().item()
         top = want.double().abs().max().item()
         K = a.shape[1]
-        if calls != launches:
-            raise AssertionError(f"{name} {dt}: {calls} launches in one call")
+        if calls != launches or more != want_more:
+            raise AssertionError(f"{name} {dt}: {calls} launches, (transposes, reduces) "
+                                 f"{more} in one call, not {launches} and {want_more}")
         if dt == "int8":
             ok = torch.equal(got, want) and s_got == s_want
             limit = "bit-equal"
@@ -1684,7 +1760,7 @@ def phase_probes(device, shapes: dict = None) -> dict:
         print(f"kernel {name} {dt} {tuple(a.shape)} x {tuple(b.shape)}"
               f"{f' x {extra[0]} repeats' if extra else ''}: max abs err {err:.3e} "
               f"({err / top:.2e} of max |plain|), f32 sums {s_got:.9e} and {s_want:.9e}; "
-              f"{limit}; {calls} launch")
+              f"{limit}; {calls} launch, (transposes, reduces) {more}")
         if not ok:
             raise AssertionError(f"{name} {dt}: max abs err {err}, sums {s_got} and "
                                  f"{s_want}, beyond {limit}")
@@ -1692,14 +1768,14 @@ def phase_probes(device, shapes: dict = None) -> dict:
     for fn, tile in ((dot_loop, DOT_LOOP_TILE), (dot_grid, DOT_GRID_TILE)):
         a = torch.ones((tile[0] + 8, tile[2]), dtype=torch.int8, device=device)
         b = torch.ones((tile[2], tile[1]), dtype=torch.int8, device=device)
-        before = fn.launches
+        before = (fn.launches, fn.transposes)
         try:
             fn(a, b)
         except ValueError as e:
             print(f"kernel {fn.__name__}: [{tile[0] + 8}, {tile[2]}] refused: {e}")
         else:
             raise AssertionError(f"{fn.__name__} took M = {tile[0] + 8}")
-        if fn.launches != before:
+        if (fn.launches, fn.transposes) != before:
             raise AssertionError(f"{fn.__name__} launched on a refused shape")
     return errs
 
@@ -1731,7 +1807,9 @@ def phase_probe_times(device, smi: str) -> dict:
     its TOPS and share of the bound, the plain version, the library yardstick (one
     ``tools/common.py:library_product`` call for dot_grid, R in turn for dot_loop, as the
     JAX probe's ``make_xla``), the JAX-shaped call (kernel, float32 sum, ``.item()``, by
-    ``tools/common.py:time_2arg``), and the int8 / bf16 ratios."""
+    ``tools/common.py:time_2arg``), and the int8 / bf16 ratios. Beside the int8 library
+    call, another layout than the probes': ``torch._int_mm`` with B column-major
+    (cuBLASLt's TN int8 layout, B made so outside the timed window)."""
     library = {"dot_loop": probe_int8_dot.library_loop,
                "dot_grid": lambda a, b: library_product(a.dtype)[0](a, b)}
     rows = {}
@@ -1747,17 +1825,26 @@ def phase_probe_times(device, smi: str) -> dict:
         rows[(name, dt)] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
                             "bound_ms": bound, "bound_by": by, "jax_shaped_ms": shaped,
                             "tops": tops}
+        layout = ""
+        if dt == "int8":
+            b_col = b.t().contiguous().t()  # another layout, made outside the timed window
+            other = best_ms(lambda: library[name](a, b_col))
+            rows[(name, dt)]["library_colmajor_ms"] = other
+            layout = (f"; torch._int_mm with B column-major (another layout) {other:.4f} "
+                      f"ms{' x R in turn' if R > 1 else ''}")
         print(f"time {name} {dt} ({M}x{K} . {K}x{N}, R={R}): kernel {ms:.4f} ms "
               f"({tops:.1f} T(FL)OP/s, {bound / ms * 100:.1f} % of the bound "
               f"{bound:.4f} ms, {by}), plain {plain:.4f} ms, library {lib:.4f} ms "
               f"({library_product(a.dtype)[1]}{' x R in turn' if R > 1 else ''}), "
-              f"kernel + f32 sum + .item() {shaped:.4f} ms [{smi}]")
+              f"kernel + f32 sum + .item() {shaped:.4f} ms{layout} [{smi}]")
     for name in PROBE_SHAPES:
         k = rows[(name, "bf16")]["ms"] / rows[(name, "int8")]["ms"]
         lib = rows[(name, "bf16")]["library_ms"] / rows[(name, "int8")]["library_ms"]
+        col = rows[(name, "bf16")]["library_ms"] / rows[(name, "int8")]["library_colmajor_ms"]
         print(f"time {name}: int8 / bf16 speed-up {k:.2f}x for the kernel, {lib:.2f}x for "
-              f"the library (data sheet: 1,979 / 989 = 2.00x) [{smi}]")
-        rows[(name, "ratio")] = {"kernel": k, "library": lib}
+              f"the library, {col:.2f}x for the library with int8 B column-major (data "
+              f"sheet: 1,979 / 989 = 2.00x) [{smi}]")
+        rows[(name, "ratio")] = {"kernel": k, "library": lib, "library_colmajor": col}
     return rows
 
 
@@ -1897,6 +1984,7 @@ def reset_counts() -> None:
     sig_l2_fused.launches = sig_l2_fused.backward_launches = 0
     bilinear_sample_fused.launches = bilinear_sample_fused.backward_launches = 0
     dot_loop.launches = dot_grid.launches = 0
+    dot_loop.transposes = dot_grid.transposes = dot_loop.reduces = 0
     bilinear_sample_reference.calls = 0
 
 
@@ -1911,6 +1999,8 @@ def read_counts(sync: bool = True) -> dict:
             "fused_fwd": bilinear_sample_fused.launches,
             "fused_bwd": bilinear_sample_fused.backward_launches,
             "dot_loop": dot_loop.launches, "dot_grid": dot_grid.launches,
+            "dot_loop_transposes": dot_loop.transposes,
+            "dot_grid_transposes": dot_grid.transposes, "dot_loop_reduces": dot_loop.reduces,
             "plain_samples": bilinear_sample_reference.calls}
 
 
@@ -2033,15 +2123,19 @@ def main() -> None:
     phase_depth_then_cam_times("cuda", info["smi"])
     stamp("config-3 step parity and times")
 
+    phase_sass()
     probe_errs = phase_probes("cuda")
     reset_counts()  # two main paths: the probes' own entry points
     phase_probe_tools()
     probe_counts = read_counts()
     print(f"probe tools launches: {probe_counts} [{info['smi']}]")
     for name in PROBE_SHAPES:
-        if probe_counts[name] != PROBE_TOOL_LAUNCHES:
-            raise AssertionError(f"the {name} probe launched {probe_counts[name]} times, "
-                                 f"not {PROBE_TOOL_LAUNCHES}")
+        got = (probe_counts[name], probe_counts[f"{name}_transposes"],
+               probe_counts.get(f"{name}_reduces", 0))
+        want = (PROBE_TOOL_LAUNCHES, PROBE_TOOL_TRANSPOSES, PROBE_TOOL_REDUCES[name])
+        if got != want:
+            raise AssertionError(f"the {name} probe launched (products, transposes, "
+                                 f"reduces) {got}, not {want}")
     prow = phase_probe_times("cuda", info["smi"])
     stamp("probe checks and times")
     phase_turbo_parity("cuda")
@@ -2112,15 +2206,19 @@ def main() -> None:
     for name, replaces in (("dot_loop", "tools/probe_int8_dot.py:29"),
                            ("dot_grid", "tools/probe_int8_dot2.py:60")):
         # int8, the probes' question, at their shapes; bf16 beside it; launches: the
-        # probe tool's run (both dtypes); library: torch._int_mm (R in turn for dot_loop)
+        # probe tool's run (both dtypes), with the int8 transposes of B and the loop's sums
+        # of its K parts beside them; library: torch._int_mm (R in turn for dot_loop)
         row, bf16 = prow[(name, "int8")], prow[(name, "bf16")]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tf_depth_estimation_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": probe_counts[name],
+            "transpose_launches": probe_counts[f"{name}_transposes"],
+            "reduce_launches": probe_counts.get(f"{name}_reduces", 0),
             "max_abs_err": probe_errs[(name, "int8")], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library_colmajor_ms": row["library_colmajor_ms"],
             "bf16": {"max_abs_err": probe_errs[(name, "bf16")], "ms": bf16["ms"],
                      "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
                      "library_ms": bf16["library_ms"]},

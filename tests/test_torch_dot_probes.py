@@ -154,24 +154,30 @@ def test_the_bf16_loop_adds_the_products_in_turn():
     assert torch.equal(dl.dot_loop_reference(a, b, 3), want)
 
 
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
 @pytest.mark.parametrize("fn, tile", [(dl.dot_loop, dl.TILE), (dg.dot_grid, dg.TILE)],
                          ids=["loop", "grid"])
-def test_wrappers_refuse_what_the_kernels_do_not_take(fn, tile):
+def test_wrappers_refuse_what_the_kernels_do_not_take(fn, tile, dtype):
+    """The tile is the same for both types: TMA reads zeros past K in the last 128-byte
+    stage, so K need not fill one."""
     M, N, K = tile[0], tile[1], tile[2]
-    a8, b8 = torch.ones((M, K), dtype=torch.int8), torch.ones((K, N), dtype=torch.int8)
+    ones = functools.partial(torch.ones, dtype=dtype)
+    a, b = ones((M, K)), ones((K, N))
     with pytest.raises(ValueError, match="multiple"):
-        fn(torch.ones((M + 8, K), dtype=torch.int8), b8)
+        fn(ones((M + 8, K)), b)
     with pytest.raises(ValueError, match="multiple"):
-        fn(torch.ones((M, K + 8), dtype=torch.int8), torch.ones((K + 8, N),
-                                                                  dtype=torch.int8))
+        fn(a, ones((K, N + 8)))
+    with pytest.raises(ValueError, match="multiple"):
+        fn(ones((M, K + 8)), ones((K + 8, N)))
+    other = torch.bfloat16 if dtype == torch.int8 else torch.int8
     with pytest.raises(TypeError):
-        fn(a8, b8.to(torch.bfloat16))
+        fn(a, b.to(other))
     with pytest.raises(TypeError):
-        fn(a8.float(), b8.float())
+        fn(a.float(), b.float())
     with pytest.raises(ValueError, match="contiguous"):
-        fn(torch.ones((K, M), dtype=torch.int8).t(), b8)
+        fn(ones((K, M)).t(), b)
     with pytest.raises(ValueError):
-        fn(a8, torch.ones((K + 64, N), dtype=torch.int8))
+        fn(a, ones((K + 64, N)))
 
 
 def test_loop_refuses_sums_past_int32():
@@ -184,12 +190,34 @@ def test_loop_refuses_sums_past_int32():
         dl.dot_loop(a, b, 0)
 
 
+@pytest.mark.parametrize("mangled, label", [
+    ("_ZN8dot_tile44_GLOBAL__N__c71bcff2_11_dot_grid_cu_c3a0eb7f10dot_kernelI13__nv_"
+     "bfloat16Li256ELb0EEEv14CUtensorMap_stS2_S2_NS_6ParamsE",
+     "dot_kernel<bf16, BN=256, grid>"),
+    ("_ZN8dot_tile44_GLOBAL__N__2a6fbf25_11_dot_loop_cu_b93a203810dot_kernelIaLi128ELb1EEEv"
+     "14CUtensorMap_stS1_S1_NS_6ParamsE", "dot_kernel<int8, BN=128, loop>"),
+    ("_ZN8dot_tile44_GLOBAL__N__c71bcff2_11_dot_grid_cu_c3a0eb7f16transpose_kernelIhEEvPKT_"
+     "PS2_ii", "transpose_kernel<h>"),
+], ids=["grid_bf16", "loop_int8", "transpose"])
+def test_the_smoke_names_the_probe_kernels_in_their_sass(mangled, label):
+    """``chip_smoke.py`` reads each kernel's type from its mangled name in ``cuobjdump``'s
+    listing, to check that bf16 products run on HGMMA and int8 ones on IGMMA."""
+    import chip_smoke
+
+    assert chip_smoke._kernel_label(mangled) == label
+
+
+def _counts():
+    return (dl.dot_loop.launches, dl.dot_loop.transposes, dl.dot_loop.reduces,
+            dg.dot_grid.launches, dg.dot_grid.transposes)
+
+
 def test_cpu_calls_launch_nothing():
-    before = (dl.dot_loop.launches, dg.dot_grid.launches)
+    before = _counts()
     x = _inputs(GRID)["int8"]
     dg.dot_grid(*x)
     dl.dot_loop(x[0][:64, :64].contiguous(), x[1][:64, :64].contiguous(), 2)
-    assert (dl.dot_loop.launches, dg.dot_grid.launches) == before
+    assert _counts() == before
 
 
 # ---- on the card -----------------------------------------------------------------------
@@ -201,31 +229,100 @@ def _cuda():
     return torch.device("cuda")
 
 
+# name -> (wrapper, plain version, (M, K, N), extra args): the probes' shapes, small and
+# rectangular ones, and for dot_grid 13 x 11 = 143 tiles of 128x256, one more wave than
+# the 132 SMs take, the last one ragged
 CUDA_CASES = {"loop": (dl.dot_loop, dl.dot_loop_reference, (1024, 1024, 1024), (64,)),
               "loop_small": (dl.dot_loop, dl.dot_loop_reference, (64, 192, 128), (3,)),
+              "loop_rect": (dl.dot_loop, dl.dot_loop_reference, (192, 320, 448), (3,)),
               "grid": (dg.dot_grid, dg.dot_grid_reference, (4096, 4096, 4096), ()),
-              "grid_oblong": (dg.dot_grid, dg.dot_grid_reference, (256, 384, 640), ())}
+              "grid_oblong": (dg.dot_grid, dg.dot_grid_reference, (256, 384, 640), ()),
+              "grid_rect": (dg.dot_grid, dg.dot_grid_reference, (384, 576, 1280), ()),
+              "grid_ragged_wave": (dg.dot_grid, dg.dot_grid_reference, (1664, 512, 2816),
+                                   ())}
+
+
+def _hold_to_plain(fn, ref, a, b, extra):
+    """One call of the kernel against the plain version: int8 bit-equal, bf16 within
+    ``bf16_rtol(K)`` of max |plain|; one product launch, and one transpose of B for int8."""
+    before = (fn.launches, fn.transposes)
+    got = fn(a, b, *extra)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.transposes) == (before[0] + 1,
+                                            before[1] + int(a.dtype == torch.int8))
+    want = ref(a, b, *extra)
+    if a.dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        err = (got - want).abs().max().item()
+        assert err <= bf16_rtol(a.shape[1]) * want.abs().max().item(), err
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
 @pytest.mark.parametrize("case", sorted(CUDA_CASES))
 def test_cuda_kernel_matches_plain(case, dtype):
-    """int8 bit-equal, bf16 within ``bf16_rtol``, one launch a call."""
     dev = _cuda()
     fn, ref, (M, K, N), extra = CUDA_CASES[case]
     a, b = _inputs(dict(M=M, K=K, N=N))[dtype]
-    a, b = a.to(dev), b.to(dev)
-    before = fn.launches
-    got = fn(a, b, *extra)
-    torch.cuda.synchronize()
-    assert fn.launches == before + 1
-    want = ref(a, b, *extra)
-    if dtype == "int8":
-        assert torch.equal(got, want)
-    else:
-        err = (got - want).abs().max().item()
-        assert err <= bf16_rtol(K) * want.abs().max().item(), err
+    _hold_to_plain(fn, ref, a.to(dev), b.to(dev), extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("stages", [1, 13, 45])
+@pytest.mark.parametrize("name", ["loop", "grid"])
+def test_cuda_k_of_one_stage_to_many_turns_of_the_ring(name, stages, dtype):
+    """K of 1, 13 and 45 stages of 128 bytes against a 4-stage ring: one stage; 13 (the
+    grid wraps the ring three times, the loop splits K into 4 parts kept in shared
+    memory); 45 (the loop's 8 parts stream through the ring each product)."""
+    dev = _cuda()
+    K = stages * 128 // (1 if dtype == "int8" else 2)
+    a, b = _inputs(dict(M=256, K=K, N=256))[dtype]
+    fn, ref = (dl.dot_loop, dl.dot_loop_reference) if name == "loop" else (
+        dg.dot_grid, dg.dot_grid_reference)
+    _hold_to_plain(fn, ref, a.to(dev), b.to(dev), (2,) if name == "loop" else ())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("repeats", [1, 2, 64])
+def test_cuda_loop_repeats(repeats, dtype):
+    dev = _cuda()
+    a, b = _inputs(dict(M=256, K=512, N=384))[dtype]
+    _hold_to_plain(dl.dot_loop, dl.dot_loop_reference, a.to(dev), b.to(dev), (repeats,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repeats, K", [(89, 1472), (23, 5696)])
+def test_cuda_loop_int8_at_the_largest_sum_admitted(repeats, K):
+    """int8 operands of +-127 at the largest R x K (a multiple of 64) that the wrapper
+    admits, 2047 x 64: out[0, 0] and out[0, 1] are +-R K 127^2 = +-2,113,028,032, next to
+    the int32 limit, and the whole output is bit-equal."""
+    dev = _cuda()
+    rng = np.random.RandomState(1)
+    a = rng.choice(np.array([-127, 127], dtype=np.int8), (128, K))
+    b = rng.choice(np.array([-127, 127], dtype=np.int8), (K, 128))
+    a[0], b[:, 0], b[:, 1] = 127, 127, -127
+    a, b = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    got = dl.dot_loop(a, b, repeats)
+    assert got[0, 0].item() == repeats * K * 127 ** 2 == -got[0, 1].item()
+    _hold_to_plain(dl.dot_loop, dl.dot_loop_reference, a, b, (repeats,))
+    with pytest.raises(ValueError, match="int32"):
+        dl.dot_loop(a, b, repeats + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_loop_sums_its_k_parts_once():
+    """At the probe's K = 1024 the loop splits K into 2 (int8) or 4 (bf16) parts and adds
+    them in one more launch, counted in ``dot_loop.reduces``; K of one stage needs none."""
+    dev = _cuda()
+    for K, want in ((1024, 1), (64, 0)):
+        for dtype in ("int8", "bf16"):
+            a, b = _inputs(dict(M=128, K=K, N=128))[dtype]
+            before = dl.dot_loop.reduces
+            dl.dot_loop(a.to(dev), b.to(dev), 2)
+            assert dl.dot_loop.reduces - before == want, (K, dtype)
 
 
 @pytest.mark.cuda
@@ -233,8 +330,8 @@ def test_cuda_kernels_refuse_a_shape_off_the_tile():
     dev = _cuda()
     a = torch.ones((1000, 1024), dtype=torch.int8, device=dev)
     b = torch.ones((1024, 1024), dtype=torch.int8, device=dev)
-    before = (dl.dot_loop.launches, dg.dot_grid.launches)
+    before = _counts()
     for fn in (dl.dot_loop, dg.dot_grid):
         with pytest.raises(ValueError, match="multiple"):
             fn(a, b)
-    assert (dl.dot_loop.launches, dg.dot_grid.launches) == before
+    assert _counts() == before

@@ -30,7 +30,8 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shar
 KERNELS = ("fused_tail", "bilinear_sample", "smoothness", "sig_l2", "bilinear_sample_fused",
            "dot_loop", "dot_grid")
 
-# name -> {"lib": ctypes.CDLL, "seconds": nvcc wall time (0 if cached), "log": nvcc output}
+# name -> {"lib": ctypes.CDLL, "path": the .so, "seconds": nvcc wall time (0 if cached),
+#          "log": nvcc output}
 _LOADED: Dict[str, dict] = {}
 
 
@@ -54,8 +55,9 @@ def find_nvcc() -> str:
 def build(name: str) -> dict:
     """Compile ``csrc/<name>.cu`` unless its library is built already, and load it.
 
-    Returns ``{"lib", "seconds", "log"}``: the library, nvcc's wall time (0 when the
-    library was cached) and nvcc's output, which holds the ``-Xptxas -v`` lines."""
+    Returns ``{"lib", "path", "seconds", "log"}``: the library and its file, nvcc's wall
+    time (0 when the library was cached) and nvcc's output, which holds the ``-Xptxas -v``
+    lines."""
     if name in _LOADED:
         return _LOADED[name]
     src = os.path.join(CSRC, f"{name}.cu")
@@ -76,7 +78,8 @@ def build(name: str) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
         os.replace(tmp, target)
-    _LOADED[name] = {"lib": ctypes.CDLL(target), "seconds": seconds, "log": log}
+    _LOADED[name] = {"lib": ctypes.CDLL(target), "path": target, "seconds": seconds,
+                     "log": log}
     return _LOADED[name]
 
 

@@ -1,9 +1,9 @@
 """What the two tensor-core probe wrappers (``dot_loop.py``, ``dot_grid.py``) share: the
-operand checks, the output type, the plain product and the ctypes binding."""
+operand checks, the output type, the plain product, the ctypes binding and the launch."""
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,6 +28,8 @@ def check_operands(name: str, a: torch.Tensor, b: torch.Tensor, tile: Tuple[int,
                          f"{a.device} and {b.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError(f"{name} takes contiguous (row-major) matrices")
+    if a.device.type == "cuda" and (a.data_ptr() % 16 or b.data_ptr() % 16):
+        raise ValueError(f"{name} takes matrices that start on 16 bytes (TMA's alignment)")
     (M, K), N = a.shape, b.shape[1]
     for dim, size, multiple in (("M", M, tile[0]), ("N", N, tile[1]), ("K", K, tile[2])):
         if size < 1 or size % multiple:
@@ -63,5 +65,34 @@ def bind(name: str, argtypes: list) -> ctypes.CDLL:
     return lib
 
 
-def launch_args(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> tuple:
-    return a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], b.shape[1], a.shape[1]
+def launch(fn, c_launch, a: torch.Tensor, b: torch.Tensor, *ints: int,
+           parts: Optional[int] = None) -> torch.Tensor:
+    """Launch the kernel ``c_launch`` (``<name>_launch``) on a and b on their card, with
+    ``ints`` after M, N and K, and count it on the wrapper ``fn``: ``fn.launches`` the
+    products, ``fn.transposes`` the transposes of B that go before them, and, where
+    ``parts`` (a loop's K parts) is given, ``fn.reduces`` the sums of two or more parts
+    that go after them. Raises when a launch fails."""
+    (M, K), N = a.shape, b.shape[1]
+    out = torch.empty((M, N), dtype=OUT_DTYPE[a.dtype], device=a.device)
+    # wgmma reads int8 B only K-major, so an int8 call transposes B into ``bt`` first;
+    # bf16 reads B as it is, N-major (csrc/dot_tile.cuh)
+    kmajor = a.dtype == torch.int8
+    bt = torch.empty((N, K), dtype=a.dtype, device=a.device) if kmajor else None
+    scratch = []
+    if parts is not None:  # the planes of the K parts' sums, for two or more
+        planes = torch.empty((parts, M, N), dtype=out.dtype, device=a.device) if parts > 1 \
+            else None
+        scratch = [None if planes is None else planes.data_ptr()]
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = c_launch(a.data_ptr(), b.data_ptr(), None if bt is None else bt.data_ptr(),
+                       *scratch, out.data_ptr(), M, N, K, *ints,
+                       int(a.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"{c_launch.__name__} failed: {err} (a cudaError_t, or "
+                           f"negative: csrc/dot_tile.cuh:launch_typed)")
+    fn.launches += 1
+    fn.transposes += int(kmajor)
+    if parts is not None:
+        fn.reduces += int(parts > 1)
+    return out

@@ -8,7 +8,8 @@ with the full K in each step; ``csrc/dot_grid.cu`` says how the kernel tiles it 
 bounds it.
 
 On a CUDA tensor ``dot_grid`` launches ``csrc/dot_grid.cu`` (counted in
-``dot_grid.launches``) or raises; it never hands the product to a library. On a CPU tensor
+``dot_grid.launches``; for int8 after a transpose of B, counted in
+``dot_grid.transposes``) or raises; it never hands the product to a library. On a CPU tensor
 it runs ``dot_grid_reference``. M, N and K must be multiples of ``TILE``.
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ from tf_depth_estimation_torch.ops._dot import (
     OUT_DTYPE,
     bind,
     check_operands,
-    launch_args,
+    launch,
     plain_product,
 )
 
@@ -40,25 +41,17 @@ def dot_grid(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     check_operands("dot_grid", a, b, TILE)
     if a.device.type == "cpu":
         return dot_grid_reference(a, b)
-    out = torch.empty((a.shape[0], b.shape[1]), dtype=OUT_DTYPE[a.dtype], device=a.device)
-    lib = _lib()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.dot_grid_launch(*launch_args(a, b, out), int(a.dtype == torch.bfloat16),
-                                  stream)
-    if err != 0:
-        raise RuntimeError(f"dot_grid_launch failed: cudaError_t {err}")
-    dot_grid.launches += 1
-    return out
+    return launch(dot_grid, _lib().dot_grid_launch, a, b)
 
 
 dot_grid.launches = 0
+dot_grid.transposes = 0
 
 
 @lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib = bind("dot_grid", [p, p, p, i, i, i, i, p])
+    lib = bind("dot_grid", [p, p, p, p, i, i, i, i, p])
     if lib.tile != TILE:
         raise RuntimeError(f"csrc/dot_grid.cu tiles {lib.tile}, ops/dot_grid.py {TILE}")
     return lib

@@ -8,7 +8,9 @@ issues R = 64 products of 1024^3 from VMEM and adds them, ``acc + dot``; the ker
 issues every product too (``csrc/dot_loop.cu`` says how and what bounds it).
 
 On a CUDA tensor ``dot_loop`` launches ``csrc/dot_loop.cu`` (counted in
-``dot_loop.launches``) or raises; it never hands the product to a library. On a CPU
+``dot_loop.launches``; for int8 after a transpose of B, ``dot_loop.transposes``; where K
+is split into parts, before their sum, ``dot_loop.reduces``) or raises; it never hands the
+product to a library. On a CPU
 tensor it runs ``dot_loop_reference``. M, N and K must be multiples of ``TILE``.
 """
 from __future__ import annotations
@@ -22,7 +24,7 @@ from tf_depth_estimation_torch.ops._dot import (
     OUT_DTYPE,
     bind,
     check_operands,
-    launch_args,
+    launch,
     plain_product,
 )
 
@@ -47,25 +49,21 @@ def dot_loop(a: torch.Tensor, b: torch.Tensor, repeats: int = REPEATS) -> torch.
     check_operands("dot_loop", a, b, TILE, repeats)
     if a.device.type == "cpu":
         return dot_loop_reference(a, b, repeats)
-    out = torch.empty((a.shape[0], b.shape[1]), dtype=OUT_DTYPE[a.dtype], device=a.device)
     lib = _lib()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.dot_loop_launch(*launch_args(a, b, out), repeats,
-                                  int(a.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"dot_loop_launch failed: cudaError_t {err}")
-    dot_loop.launches += 1
-    return out
+    parts = lib.dot_loop_parts(a.shape[1], int(a.dtype == torch.bfloat16))
+    return launch(dot_loop, lib.dot_loop_launch, a, b, repeats, parts=parts)
 
 
 dot_loop.launches = 0
+dot_loop.transposes = 0
+dot_loop.reduces = 0
 
 
 @lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib = bind("dot_loop", [p, p, p, i, i, i, i, i, p])
+    lib = bind("dot_loop", [p, p, p, p, p, i, i, i, i, i, p])
+    lib.dot_loop_parts.argtypes, lib.dot_loop_parts.restype = [i, i], i
     if lib.tile != TILE:
         raise RuntimeError(f"csrc/dot_loop.cu tiles {lib.tile}, ops/dot_loop.py {TILE}")
     return lib
