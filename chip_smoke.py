@@ -15,13 +15,15 @@ Phases, each raising on failure:
   2. build: nvcc -> shared library -> ctypes for every kernel, one nvcc per source, all
      started together, with nvcc's wall times and the -Xptxas -v lines;
   3. kernel vs plain: ``fused_tail`` against ``fused_tail_reference`` at the tail's shapes
-     of a 576x384 batch of 8, teacher weights, seeded inputs, in float32 and bf16;
+     of a 576x384 batch of 8, 16 and 64 (at 16 and 64 each persistent bf16 block takes
+     several items), teacher weights, seeded inputs, in float32 and bf16;
   4. whole forward: ``fast_depth_forward`` in float32 with the fused tail against the
      plain module forward (``DispNet`` eval, native tail) at rtol = atol = 2e-4;
   5. serving, a main path: a ``DepthPredictor`` answers requests of 8, 5 and 1 frames;
      the kernels' launch counts are set to 0 just before and read just after;
-  6. times with CUDA events: the tail kernel, its plain version and its bound at batch 8
-     and 64, and the bf16 forward's frames/s at batch 64;
+  6. times with CUDA events: the tail kernel, its plain version, its bound and the native
+     chain of the same layers (``infer/fast.py:native_tail``, cuDNN; a yardstick of several
+     calls) at batch 8 and 64, and the bf16 forward's frames/s at batch 64;
   7. kernel vs plain: ``bilinear_sample`` against ``bilinear_sample_reference`` at config
      4's shapes (B=10, 224x480x3, pixels in [0, 255]) with the coords of a real depth warp,
      wild coords, exact-integer coords and an odd non-square size; forward and dcoords;
@@ -100,10 +102,12 @@ Phases, each raising on failure:
      config-3 step's 4 calls, forward and forward + backward; ms/step of the bf16 step with
      the fused and with the plain sampler, in turns of 5 steps; launches a step from
      ``train/profile_step.py``.
- 23. kernel vs plain: ``cuobjdump -sass`` on the built ``dot_loop`` and ``dot_grid``
-     libraries, with each kernel's HGMMA, IGMMA, UTMALDG, UTMASTG, HMMA and IMMA counts
-     and its registers and spills (raising unless the bf16 products run on HGMMA and the
-     int8 ones on IGMMA, each loading through UTMALDG, with no HMMA or IMMA left); then
+ 23. kernel vs plain: ``cuobjdump -sass`` on the built ``dot_loop``, ``dot_grid`` and
+     ``fused_tail`` libraries, with each kernel's HGMMA, IGMMA, UTMALDG, UTMASTG, HMMA and
+     IMMA counts and its registers and spills (raising unless the probes' bf16 products run
+     on HGMMA and the int8 ones on IGMMA, each loading through UTMALDG, with no HMMA or
+     IMMA left, and unless the tail's bf16 kernel holds HGMMA and UTMALDG and no HMMA; its
+     f32 kernel is listed, not held); then
      ``dot_loop`` (1024^3, R = 64) and ``dot_grid`` (4096^3) against their plain versions
      on the probes' operands, int8 and bf16: int8 bit-equal, bf16 within
      ``bf16_rtol(K)`` of max |plain|, the probes' float32 sums likewise, one product
@@ -156,7 +160,12 @@ from tf_depth_estimation_torch.data.colon import PairDepthDataset
 from tf_depth_estimation_torch.data.pipeline import BatchLoader, to_device
 from tf_depth_estimation_torch.data.synthetic import write_colon_pair_dataset
 from tf_depth_estimation_torch.geometry.warp import projective_inverse_warp
-from tf_depth_estimation_torch.infer.fast import fast_depth_forward, fold_weights, folded_forward
+from tf_depth_estimation_torch.infer.fast import (
+    fast_depth_forward,
+    fold_weights,
+    folded_forward,
+    native_tail,
+)
 from tf_depth_estimation_torch.infer.fast_turbo import (
     fast_turbo_forward,
     fold_turbo,
@@ -311,8 +320,8 @@ PROBE_SHAPES = {"dot_loop": (1024, 1024, 1024, 64), "dot_grid": (4096, 4096, 409
 PROBE_TOOL_LAUNCHES = 2 * (1 + 8 * 5)
 PROBE_TOOL_TRANSPOSES = 1 + 8 * 5
 PROBE_TOOL_REDUCES = {"dot_loop": PROBE_TOOL_LAUNCHES, "dot_grid": 0}
-# the SASS instructions counted in the probe libraries: wgmma (HGMMA bf16, IGMMA int8),
-# TMA loads and stores, and mma.sync (HMMA, IMMA), which wmma compiles to
+# the SASS instructions counted in the probe and tail libraries: wgmma (HGMMA bf16, IGMMA
+# int8), TMA loads and stores, and mma.sync (HMMA, IMMA), which wmma compiles to
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "HMMA", "IMMA")
 # TurboDepthNet serving: the committed student whose weights the GPU machine's copy of
 # the tree holds (the other presets' files stay off it), and the JAX turbo bench's batch
@@ -367,25 +376,30 @@ def tail_inputs(batch: int, dtype: torch.dtype, device) -> tuple:
             torch.from_numpy(d2).to(device))
 
 
-def phase_kernel(folded_by_dtype: dict, batch: int = 8) -> dict:
+def phase_kernel(folded_by_dtype: dict, batches: tuple = (8, 16, 64)) -> dict:
+    """The largest error of each dtype over ``batches``: 8 is serving's bucket; at 16 and
+    64 the bf16 kernel's persistent blocks take about three and five items each, so its
+    walk across items (the next item's TMA loads, the mbarrier phases) is checked too."""
     errs = {}
-    for dt, folded in folded_by_dtype.items():
-        x2, d2 = tail_inputs(batch, dt, "cuda")
-        got = fused_tail(x2, d2, folded["tail"])
-        ref = fused_tail_reference(x2, d2, folded["tail"])
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"fused_tail {dt}: non-finite output")
-        err = (got - ref).abs().max().item()
-        mean = (got - ref).abs().mean().item()
-        tol_max, tol_mean = TOL_TAIL[dt]
-        print(f"kernel fused_tail {str(dt)[6:]} B={batch} {tuple(x2.shape)}: abs err max "
-              f"{err:.3e}, mean {mean:.3e} vs fused_tail_reference, tolerance max "
-              f"{tol_max:.0e}, mean {tol_mean:.0e}")
-        if err > tol_max or mean > tol_mean:
-            raise AssertionError(f"fused_tail {dt}: abs err max {err}, mean {mean} beyond "
-                                 f"{tol_max}, {tol_mean}")
-        errs[dt] = err
+    for batch in batches:
+        for dt, folded in folded_by_dtype.items():
+            x2, d2 = tail_inputs(batch, dt, "cuda")
+            got = fused_tail(x2, d2, folded["tail"])
+            ref = fused_tail_reference(x2, d2, folded["tail"])
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"fused_tail {dt} B={batch}: non-finite output")
+            err = (got - ref).abs().max().item()
+            mean = (got - ref).abs().mean().item()
+            tol_max, tol_mean = TOL_TAIL[dt]
+            print(f"kernel fused_tail {str(dt)[6:]} B={batch} {tuple(x2.shape)}: abs err "
+                  f"max {err:.3e}, mean {mean:.3e} vs fused_tail_reference, tolerance max "
+                  f"{tol_max:.0e}, mean {tol_mean:.0e}")
+            if err > tol_max or mean > tol_mean:
+                raise AssertionError(f"fused_tail {dt} B={batch}: abs err max {err}, mean "
+                                     f"{mean} beyond {tol_max}, {tol_mean}")
+            errs[dt] = max(errs.get(dt, 0.0), err)
+            del x2, d2, got, ref
     return errs
 
 
@@ -494,21 +508,29 @@ def tail_bound(batch: int, dtype: torch.dtype) -> tuple:
 
 
 def phase_times(folded_by_dtype: dict, smi: str) -> dict:
+    """The tail kernel, its plain version, its bound and, as a yardstick of several calls
+    (no single PyTorch call computes the tail), the native chain of the same layers that
+    ``folded_forward(tail="native")`` runs (cuDNN's deconv and conv, the resize, the
+    concat, the head) from the same x2 and d2; then the bf16 forward at B=64."""
     rows = {}
     for batch in (8, 64):
         for dt, folded in folded_by_dtype.items():
             x2, d2 = tail_inputs(batch, dt, "cuda")
+            x2n, d2n = x2.permute(0, 3, 1, 2), d2.permute(0, 3, 1, 2)  # channels-last views
             p = folded["tail"]
             iters = 20 if batch == 8 else 5
-            ms = time_ms(lambda: fused_tail(x2, d2, p), iters)
+            ms = time_ms(lambda: fused_tail(x2, d2, p), 4 * iters)
             plain = time_ms(lambda: fused_tail_reference(x2, d2, p), iters)
+            with torch.inference_mode():
+                native = time_ms(lambda: native_tail(folded, x2n, d2n, (HEIGHT, WIDTH)),
+                                 iters)
             bound, by = tail_bound(batch, dt)
-            rows[(batch, dt)] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-                                 "bound_by": by}
+            rows[(batch, dt)] = {"ms": ms, "plain_ms": plain, "native_ms": native,
+                                 "bound_ms": bound, "bound_by": by}
             print(f"time fused_tail {str(dt)[6:]} B={batch}: kernel {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, bound {bound:.4f} ms ({by}), kernel/bound "
-                  f"{ms / bound:.1f}x [{smi}]")
-            del x2, d2
+                  f"{plain:.4f} ms, native chain {native:.4f} ms, bound {bound:.4f} ms "
+                  f"({by}), kernel/bound {ms / bound:.1f}x [{smi}]")
+            del x2, d2, x2n, d2n
     batch = 64
     folded = folded_by_dtype[torch.bfloat16]
     x = torch.from_numpy(_frames(batch, HEIGHT, WIDTH)).cuda()
@@ -1671,8 +1693,9 @@ def probe_cases(device, shapes: dict = None) -> dict:
 
 
 def _kernel_label(mangled: str) -> str:
-    """A readable name for a probe library's kernel: dot_kernel's element type (int8
-    reads B^T, bf16 B), tile width and loop or grid; the transpose and reduce kernels."""
+    """A readable name for a kernel of the probe or tail libraries: dot_kernel's element
+    type (int8 reads B^T, bf16 B), tile width and loop or grid; the transpose and reduce
+    kernels; the tail's bf16 (tensor-core) and f32 kernels."""
     m = re.search(r"dot_kernelI(13__nv_bfloat16|a)Li(\d+)ELb([01])E", mangled)
     if m:
         return (f"dot_kernel<{'bf16' if m.group(1) != 'a' else 'int8'}, BN={m.group(2)}, "
@@ -1680,38 +1703,62 @@ def _kernel_label(mangled: str) -> str:
     for kind in ("transpose_kernel", "reduce_kernel"):
         if kind in mangled:
             return f"{kind}<{mangled.split(kind + 'I', 1)[1][:1]}>"
+    if "tail_bf16_kernel" in mangled:
+        return "tail_bf16_kernel"
+    if "fused_tail_kernel" in mangled:
+        return "fused_tail_kernel<f32>"
     return mangled
 
 
-def phase_sass() -> dict:
-    """``cuobjdump -sass`` on the built ``dot_grid`` and ``dot_loop`` libraries: each
-    kernel's count of ``SASS_OPS``, and its registers and spills from nvcc's ``-Xptxas
-    -v`` lines. Raises unless each library's bf16 products run on HGMMA and its int8
-    products on IGMMA, each product kernel loads through UTMALDG, and neither library
-    holds an HMMA or IMMA (wmma's mma.sync). Returns label -> counts."""
+def sass_counts(name: str) -> dict:
+    """``cuobjdump -sass`` on the built library ``name``: label -> each kernel's count of
+    ``SASS_OPS``, and its registers and spills from nvcc's ``-Xptxas -v`` lines, printed."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    entry = _build.build(name)
+    sass = subprocess.run([cuobjdump, "-sass", entry["path"]], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    regs, fn = {}, None
+    for line in entry["log"].splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+        elif fn and "spill stores" in line:
+            regs[fn] = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+        elif fn and "Used" in line and "registers" in line:
+            regs[fn] = [re.search(r"Used (\d+) registers", line).group(1)] + regs.get(fn, [])
+    out = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        mangled = block.split("\n", 1)[0].strip()
+        counts = {op: len(re.findall(rf"\b{op}\b", block)) for op in SASS_OPS}
+        label = _kernel_label(mangled)
+        r = regs.get(mangled, ["?", "?", "?"])
+        print(f"sass {name} {label}: " + ", ".join(f"{k} {v}" for k, v in counts.items())
+              + f"; {r[0]} registers, {r[1] if len(r) > 1 else '?'} bytes spill stores, "
+              f"{r[2] if len(r) > 2 else '?'} bytes spill loads")
+        out[label] = counts
+    return out
+
+
+def hold_tail_sass(counts: dict) -> None:
+    """Raise unless the tail's bf16 kernel runs its products on wgmma (HGMMA), loads x2
+    through the TMA (UTMALDG) and holds no mma.sync (HMMA). The f32 kernel is listed, not
+    held: it runs on the CUDA cores by design."""
+    got = counts.get("tail_bf16_kernel")
+    if got is None:
+        raise AssertionError(f"fused_tail: no bf16 kernel among {sorted(counts)}")
+    if not got["HGMMA"] or not got["UTMALDG"] or got["HMMA"]:
+        raise AssertionError(f"fused_tail: tail_bf16_kernel is not wgmma fed by TMA: {got}")
+
+
+def phase_sass() -> dict:
+    """``sass_counts`` of the ``dot_grid``, ``dot_loop`` and ``fused_tail`` libraries.
+    Raises unless each probe library's bf16 products run on HGMMA and its int8 products
+    on IGMMA, each product kernel loads through UTMALDG, and neither probe library holds
+    an HMMA or IMMA (wmma's mma.sync); and unless ``hold_tail_sass`` passes. Returns
+    (library, label) -> counts."""
     out = {}
     for name in ("dot_grid", "dot_loop"):
-        entry = _build.build(name)
-        sass = subprocess.run([cuobjdump, "-sass", entry["path"]], capture_output=True,
-                              text=True, timeout=120, check=True).stdout
-        regs, fn = {}, None
-        for line in entry["log"].splitlines():
-            if "Function properties for" in line:
-                fn = line.split("Function properties for", 1)[1].strip()
-            elif fn and "spill stores" in line:
-                regs[fn] = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
-            elif fn and "Used" in line and "registers" in line:
-                regs[fn] = [re.search(r"Used (\d+) registers", line).group(1)] + regs.get(fn, [])
         kinds = set()
-        for block in re.split(r"\n\s*Function : ", sass)[1:]:
-            mangled = block.split("\n", 1)[0].strip()
-            counts = {op: len(re.findall(rf"\b{op}\b", block)) for op in SASS_OPS}
-            label = _kernel_label(mangled)
-            r = regs.get(mangled, ["?", "?", "?"])
-            print(f"sass {name} {label}: " + ", ".join(f"{k} {v}" for k, v in counts.items())
-                  + f"; {r[0]} registers, {r[1] if len(r) > 1 else '?'} bytes spill stores, "
-                  f"{r[2] if len(r) > 2 else '?'} bytes spill loads")
+        for label, counts in sass_counts(name).items():
             if counts["HMMA"] or counts["IMMA"]:
                 raise AssertionError(f"{name}: {label} holds mma.sync: {counts}")
             if label.startswith("dot_kernel"):
@@ -1723,6 +1770,9 @@ def phase_sass() -> dict:
             out[(name, label)] = counts
         if kinds != {"bf16", "int8"}:
             raise AssertionError(f"{name}: product kernels for {sorted(kinds)} only")
+    tail = sass_counts("fused_tail")
+    hold_tail_sass(tail)
+    out.update({("fused_tail", label): counts for label, counts in tail.items()})
     return out
 
 
@@ -2156,6 +2206,8 @@ def main() -> None:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the same function
+        # the native chain of the same layers (cuDNN, several calls): a yardstick
+        "native_chain_ms": main_row["native_ms"],
     }, {
         "name": "bilinear_sample", "route": "cuda",
         "source": "tf_depth_estimation_torch/csrc/bilinear_sample.cu",

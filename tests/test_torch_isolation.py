@@ -105,11 +105,12 @@ assert not any(chip_smoke.read_counts().values()), chip_smoke.read_counts()
 """,
     # on the CPU the wrappers run their plain versions; the probes have no CPU path
     "dot_probes": r"""
-from tf_depth_estimation_torch.tools import dot_variants, probe_int8_dot, probe_int8_dot2
+from tf_depth_estimation_torch.tools import (dot_variants, probe_int8_dot, probe_int8_dot2,
+                                             tail_variants)
 errs = chip_smoke.phase_probes("cpu", {"dot_loop": (64, 128, 64, 3),
                                        "dot_grid": (128, 64, 256, 1)})
 assert set(errs.values()) == {0.0}, errs
-for probe in (probe_int8_dot, probe_int8_dot2, dot_variants):
+for probe in (probe_int8_dot, probe_int8_dot2, dot_variants, tail_variants):
     try:
         probe.main()
     except SystemExit as e:

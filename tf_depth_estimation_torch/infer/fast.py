@@ -97,6 +97,33 @@ def fold_weights(variables_or_module: Union[Dict[str, Any], DispNet], *,
     return folded
 
 
+def _conv(folded: Dict[str, Any], x: torch.Tensor, name: str, stride: int = 1):
+    w, b = folded[name]
+    return conv2d_same(x, w, b, stride)
+
+
+def _deconv(folded: Dict[str, Any], x: torch.Tensor, name: str):
+    w, b = folded[name]
+    return torch.relu(conv_transpose2d_same(x, w, b))
+
+
+def _head(folded: Dict[str, Any], x: torch.Tensor, name: str, disp_scaling: float,
+          min_disp: float) -> torch.Tensor:
+    return (disp_scaling * torch.sigmoid(_conv(folded, x, name)) + min_disp).float()
+
+
+def native_tail(folded: Dict[str, Any], x2: torch.Tensor, d2: torch.Tensor, size, *,
+                disp_scaling: float = 4.0, min_disp: float = 0.0) -> torch.Tensor:
+    """The tail as the plain chain of layers (cuDNN): upcnv1 -> d2 upsample -> icnv1 ->
+    disp1, from icnv2's output ``x2`` [B, 32, h, w] (channels-last, in the weights' dtype)
+    and ``d2`` [B, 1, h, w] float32 to d1 [B, 1, H, W] float32 at ``size`` = (H, W)."""
+    d2u = resize_bilinear(d2, tuple(size))
+    x = _deconv(folded, x2, "upcnv1")
+    x = resize_like(x, d2u)
+    x = torch.relu(_conv(folded, _cat([x, d2u.to(folded["dtype"])]), "icnv1"))
+    return _head(folded, x, "disp1", disp_scaling, min_disp)
+
+
 def folded_forward(folded: Dict[str, Any], image: torch.Tensor, *, tail: str = "fused",
                    disp_scaling: float = 4.0, min_disp: float = 0.0) -> List[torch.Tensor]:
     """Forward from ``fold_weights``' output. image: [B, H, W, 3] (uint8 or float) on the
@@ -107,17 +134,9 @@ def folded_forward(folded: Dict[str, Any], image: torch.Tensor, *, tail: str = "
     if tail == "fused" and (H % 2 or W % 2):
         raise ValueError(f"tail='fused' needs even H and W, got {H}x{W}")
     dt = folded["dtype"]
-
-    def conv(x, name, stride=1):
-        w, b = folded[name]
-        return conv2d_same(x, w, b, stride)
-
-    def deconv(x, name):
-        w, b = folded[name]
-        return torch.relu(conv_transpose2d_same(x, w, b))
-
-    def head(x, name):
-        return (disp_scaling * torch.sigmoid(conv(x, name)) + min_disp).float()
+    conv = lambda x, name, stride=1: _conv(folded, x, name, stride)
+    deconv = lambda x, name: _deconv(folded, x, name)
+    head = lambda x, name: _head(folded, x, name, disp_scaling, min_disp)
 
     x = image.permute(0, 3, 1, 2).to(dt).contiguous(memory_format=torch.channels_last)
     skips = []
@@ -144,11 +163,8 @@ def folded_forward(folded: Dict[str, Any], image: torch.Tensor, *, tail: str = "
         d1 = fused_tail(nhwc(x2).contiguous(), nhwc(d2).contiguous(), folded["tail"],
                         disp_scaling=disp_scaling, min_disp=min_disp)
         return [d1, nhwc(d2), nhwc(d3), nhwc(d4)]
-    d2u = resize_bilinear(d2, (H, W))
-    x = deconv(x2, "upcnv1")
-    x = resize_like(x, d2u)
-    x = torch.relu(conv(_cat([x, d2u.to(dt)]), "icnv1"))
-    return [nhwc(head(x, "disp1")), nhwc(d2), nhwc(d3), nhwc(d4)]
+    d1 = native_tail(folded, x2, d2, (H, W), disp_scaling=disp_scaling, min_disp=min_disp)
+    return [nhwc(d1), nhwc(d2), nhwc(d3), nhwc(d4)]
 
 
 def fast_depth_forward(variables_or_module: Union[Dict[str, Any], DispNet],

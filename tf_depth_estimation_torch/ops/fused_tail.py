@@ -15,8 +15,10 @@ weights are rounded to bf16 and the intermediates are rounded at the same two po
 that kernel: ``up`` and ``d2u`` at the concat, ``y`` before disp1. Products are summed in
 float32 and the BN scale multiplies the sum, so it is not folded into the bf16 weights.
 
-On a CUDA tensor ``fused_tail`` launches ``csrc/fused_tail.cu``; on a CPU tensor it runs
-``fused_tail_reference``.
+On a CUDA tensor ``fused_tail`` launches ``csrc/fused_tail.cu``: with bf16 ``x2`` the
+kernel that runs upcnv1 and icnv1 on the tensor cores as GEMMs over the packed operands
+``k_up`` and ``k_ic`` (x2 read by TMA, which needs its address 16-byte aligned), with
+float32 ``x2`` the CUDA-core kernel. On a CPU tensor it runs ``fused_tail_reference``.
 """
 from __future__ import annotations
 
@@ -29,10 +31,41 @@ from tf_depth_estimation_torch.models.layers import conv2d_same, conv_transpose2
 from tf_depth_estimation_torch.ops import _build
 from tf_depth_estimation_torch.ops.resize import resize_bilinear
 
-# layout of the packed parameter buffer, shared with csrc/fused_tail.cu
+# layout of the packed parameter buffer, shared with csrc/fused_tail.cu; k_up and k_ic
+# are the bf16 kernel's GEMM operands (_k_up, _k_ic)
 _PARTS = (("w_up", (3, 3, 32, 16)), ("w_ic", (3, 3, 17, 16)), ("w_d1", (3, 3, 16)),
-          ("su", (16,)), ("tu", (16,)), ("si", (16,)), ("ti", (16,)), ("b_d1", (1,)))
+          ("su", (16,)), ("tu", (16,)), ("si", (16,)), ("ti", (16,)), ("b_d1", (1,)),
+          ("k_up", (64, 128)), ("k_ic", (16, 160)))
 N_PARAMS = sum(torch.Size(s).numel() for _, s in _PARTS)
+
+
+def _k_up(w_up: torch.Tensor) -> torch.Tensor:
+    """upcnv1 as one GEMM per x2 cell (U, V), K-major: [64 (p, q, o), 128 (cy, cx, ci)].
+
+    Row (p, q, o) is output channel o of pixel (2U + p, 2V + q); column (cy, cx, ci) is
+    channel ci of x2 cell (U - 1 + cy, V - 1 + cx), which reaches that pixel through tap
+    (p + 2 - 2 cy, q + 2 - 2 cx) where both are below 3. The transpose of JAX's ``K_up``
+    (``pallas_tail.py:prepare_tail_params``). ``w_up``: (a, b, ci, co).
+    """
+    k = w_up.new_zeros(2, 2, 16, 2, 2, 32)
+    for p in range(2):
+        for q in range(2):
+            for cy in range(2):
+                for cx in range(2):
+                    a, b = p + 2 - 2 * cy, q + 2 - 2 * cx
+                    if a < 3 and b < 3:
+                        k[p, q, :, cy, cx, :] = w_up[a, b].t()
+    return k.reshape(64, 128)
+
+
+def _k_ic(w_ic: torch.Tensor) -> torch.Tensor:
+    """icnv1 as one GEMM per full-resolution pixel, K-major: [16 o, 160]. Column 16 t + c
+    (t = 3a + b < 9, c < 16) is up channel c at tap (a, b); column 144 + t is d2u at tap
+    t; the last 7 are zeros. ``w_ic``: (a, b, c, co)."""
+    k = w_ic.new_zeros(16, 160)
+    k[:, :144] = w_ic[:, :, :16].reshape(144, 16).t()
+    k[:, 144:153] = w_ic[:, :, 16].reshape(9, 16).t()
+    return k
 
 
 def prepare_tail_params(w_up1, bn_up1, w_icnv1, bn_icnv1, w_disp1, b_disp1,
@@ -42,7 +75,9 @@ def prepare_tail_params(w_up1, bn_up1, w_icnv1, bn_icnv1, w_disp1, b_disp1,
     ``w_up1`` [32,16,3,3] (``conv_transpose2d`` layout), ``w_icnv1`` [16,17,3,3] and
     ``w_disp1`` [1,16,3,3] (OIHW), ``bn_*`` eval ``(scale, shift)`` pairs, ``b_disp1`` [1].
     ``dtype`` is x2's dtype: for bf16 the upcnv1 and icnv1 weights are rounded to bf16.
-    Returns a dict of float32 views into one contiguous buffer, ``"packed"``.
+    Returns a dict of float32 views into one contiguous buffer, ``"packed"``, and
+    ``"disp1_host"``: ``w_d1`` and ``b_d1`` (145 values) in host memory, which the bf16
+    kernel takes as launch arguments.
     """
     rnd = lambda t: t.to(dtype).float()
     parts = {
@@ -52,12 +87,15 @@ def prepare_tail_params(w_up1, bn_up1, w_icnv1, bn_icnv1, w_disp1, b_disp1,
         "su": bn_up1[0], "tu": bn_up1[1], "si": bn_icnv1[0], "ti": bn_icnv1[1],
         "b_d1": b_disp1,
     }
+    parts["k_up"], parts["k_ic"] = _k_up(parts["w_up"]), _k_ic(parts["w_ic"])
     packed = torch.cat([parts[n].float().reshape(-1) for n, _ in _PARTS])
     out, off = {"packed": packed}, 0
     for n, shape in _PARTS:
         k = torch.Size(shape).numel()
         out[n] = packed[off:off + k].view(shape)
         off += k
+    # disp1's weights and bias in host memory, for the bf16 kernel's launch arguments
+    out["disp1_host"] = torch.cat([out["w_d1"].reshape(-1), out["b_d1"]]).cpu()
     return out
 
 
@@ -104,8 +142,10 @@ def fused_tail(x2: torch.Tensor, d2: torch.Tensor, params: dict, *,
                disp_scaling: float = 4.0, min_disp: float = 0.0) -> torch.Tensor:
     """d1 [B,2h,2w,1] float32 from x2 [B,h,w,32] (f32/bf16) and d2 [B,h,w,1] f32.
 
-    ``params`` comes from ``prepare_tail_params`` with x2's dtype. On a CUDA tensor this
-    launches the kernel (and counts the launch in ``fused_tail.launches``) or raises.
+    ``params`` comes from ``prepare_tail_params`` with x2's dtype, whole: the bf16 kernel
+    reads disp1's weights from ``params["disp1_host"]``, the host copy of the packed
+    ``w_d1`` and ``b_d1`` made by the same call. On a CUDA tensor this launches the kernel
+    (and counts the launch in ``fused_tail.launches``) or raises.
     """
     packed = params["packed"]
     _check(x2, d2, packed)
@@ -114,18 +154,31 @@ def fused_tail(x2: torch.Tensor, d2: torch.Tensor, params: dict, *,
                                     min_disp=min_disp)
     if x2.device.type != "cuda":
         raise ValueError(f"fused_tail runs on CUDA or CPU tensors, not {x2.device}")
+    if x2.dtype == torch.bfloat16 and x2.data_ptr() % 16:
+        raise ValueError("bf16 x2 must start at a 16-byte aligned address (the kernel reads "
+                         "it by TMA)")
+    head = params.get("disp1_host")  # read by the bf16 launch only
+    if x2.dtype == torch.bfloat16 and (
+            head is None or head.device.type != "cpu" or head.dtype != torch.float32
+            or head.numel() != 9 * 16 + 1 or not head.is_contiguous()):
+        raise ValueError("params['disp1_host'] must hold w_d1 and b_d1, 145 float32 values "
+                         "in host memory (prepare_tail_params)")
     B, h, w, _ = x2.shape
     out = torch.empty((B, 2 * h, 2 * w, 1), dtype=torch.float32, device=x2.device)
     if out.numel() == 0:
         return out
     lib = _lib()
+    host = head.data_ptr() if x2.dtype == torch.bfloat16 else None
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = lib.fused_tail_launch(
-            x2.data_ptr(), d2.data_ptr(), packed.data_ptr(), out.data_ptr(), B, h, w,
-            int(x2.dtype == torch.bfloat16), float(disp_scaling), float(min_disp), stream)
+            x2.data_ptr(), d2.data_ptr(), packed.data_ptr(), host, out.data_ptr(),
+            B, h, w, int(x2.dtype == torch.bfloat16), float(disp_scaling), float(min_disp),
+            stream)
     if err != 0:
-        raise RuntimeError(f"fused_tail_launch failed: cudaError_t {err}")
+        raise RuntimeError(f"fused_tail_launch failed: error {err} (a cudaError_t; -1: the "
+                           "driver gives no cuTensorMapEncodeTiled; -1000 - CUresult: x2's "
+                           "tensor map refused)")
     fused_tail.launches += 1
     return out
 
@@ -137,7 +190,7 @@ fused_tail.launches = 0
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_tail")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_tail_launch.argtypes = [p, p, p, p, i, i, i, i, f, f, p]
+    lib.fused_tail_launch.argtypes = [p, p, p, p, p, i, i, i, i, f, f, p]
     lib.fused_tail_launch.restype = i
     lib.fused_tail_num_params.argtypes = []
     lib.fused_tail_num_params.restype = i

@@ -1,11 +1,12 @@
-"""What the tensor-core probes share: the card check, the inputs, the timing and the
-library yardstick."""
+"""What the tensor-core probes and the kernel variant tools share: the card check, the
+inputs, the timing, the library yardstick and the build of patched kernel sources."""
 from __future__ import annotations
 
 import functools
+import os
 import subprocess
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -68,3 +69,44 @@ def library_product(dtype: torch.dtype) -> Tuple[Callable, str]:
         return torch.matmul, "torch.matmul (bf16 output)"
     return (lambda a, b: torch.mm(a, b, out_dtype=torch.float32),
             "torch.mm(out_dtype=float32)")
+
+
+def best_ms(call: Callable, iters: int = 10, windows: int = 5) -> float:
+    """Best of ``windows`` CUDA-event windows of ``iters`` calls (ms a call), after one
+    window that warms up."""
+    best = float("inf")
+    for w in range(windows + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        if w:
+            best = min(best, start.elapsed_time(end) / iters)
+    return best
+
+
+def build_variant(kernel: str, patches: List[Tuple[str, str, str]], directory: str) -> str:
+    """Copy the headers of ``csrc/`` and ``csrc/<kernel>.cu`` into ``directory``, replace
+    each ``(file, old text, new text)`` of ``patches`` (raising where the text is gone),
+    and build the copy with the port's flags; returns the library's path."""
+    from tf_depth_estimation_torch.ops import _build
+
+    os.makedirs(directory, exist_ok=True)
+    names = [f for f in sorted(os.listdir(_build.CSRC)) if f.endswith(".cuh")]
+    texts = {f: open(os.path.join(_build.CSRC, f)).read() for f in (*names, f"{kernel}.cu")}
+    for f, old, new in patches:
+        if old not in texts[f]:
+            raise RuntimeError(f"{kernel}: {f} no longer holds {old!r}")
+        texts[f] = texts[f].replace(old, new)
+    for f, text in texts.items():
+        with open(os.path.join(directory, f), "w") as fh:
+            fh.write(text)
+    lib = os.path.join(directory, f"{kernel}.so")
+    proc = subprocess.run([_build.find_nvcc(), *_build.FLAGS, "-o", lib,
+                           os.path.join(directory, f"{kernel}.cu")], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {directory}:\n{proc.stdout}{proc.stderr}")
+    return lib

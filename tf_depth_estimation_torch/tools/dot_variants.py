@@ -1,7 +1,8 @@
 """Timings of variants of the probe kernels, to show what holds them back on the card.
 
-Each variant is a copy of ``csrc/dot_tile.cuh`` and of ``csrc/dot_grid.cu`` or
-``csrc/dot_loop.cu`` with a few lines changed, built with the port's flags beside the
+Each variant is a copy of the headers of ``csrc/`` and of ``csrc/dot_grid.cu`` or
+``csrc/dot_loop.cu`` with a few lines of ``csrc/dot_tile.cuh`` or the kernel's source
+changed, built with the port's flags beside the
 committed kernels. All run at the probes' shapes (one 4096^3 product, 64 products of
 1024^3), int8 and bf16, in turns (committed, variants, variants reversed, committed),
 the best of 5 CUDA-event windows of 10 calls each:
@@ -23,14 +24,18 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Tuple
 
 import torch
 
 from tf_depth_estimation_torch.ops import _build
-from tf_depth_estimation_torch.tools.common import inputs, require_cuda
+from tf_depth_estimation_torch.tools.common import (
+    best_ms,
+    build_variant,
+    inputs,
+    require_cuda,
+)
 
 HEADER = "dot_tile.cuh"
 READ_BT = (HEADER, "constexpr bool b_kmajor() { return sizeof(T) == 1; }",
@@ -65,40 +70,13 @@ OUT = os.path.join(os.path.dirname(_build.BUILD_DIR), "dot_variants")
 def build(kernel: str, variant: str):
     """The variant's library (``<kernel>_launch`` typed), built from patched copies."""
     d = os.path.join(OUT, kernel, variant.replace(" ", "_"))
-    os.makedirs(d, exist_ok=True)
-    texts = {f: open(os.path.join(_build.CSRC, f)).read() for f in (HEADER, f"{kernel}.cu")}
-    for f, old, new in VARIANTS.get((kernel, variant), []):
-        if old not in texts[f]:
-            raise RuntimeError(f"{kernel} {variant}: {f} no longer holds {old!r}")
-        texts[f] = texts[f].replace(old, new)
-    for f, text in texts.items():
-        with open(os.path.join(d, f), "w") as fh:
-            fh.write(text)
-    lib = os.path.join(d, f"{kernel}.so")
-    proc = subprocess.run([_build.find_nvcc(), *_build.FLAGS, "-o", lib,
-                           os.path.join(d, f"{kernel}.cu")], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {kernel} {variant}:\n{proc.stdout}{proc.stderr}")
+    lib = build_variant(kernel, VARIANTS.get((kernel, variant), []), d)
     fn = getattr(ctypes.CDLL(lib), f"{kernel}_launch")
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = ([p] * 4 + [i] * 4 + [p] if kernel == "dot_grid"
                    else [p] * 5 + [i] * 5 + [p])
     fn.restype = i
     return fn
-
-
-def best_ms(call, iters: int = 10, windows: int = 5) -> float:
-    best = float("inf")
-    for w in range(windows + 1):  # the first window warms up
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            call()
-        end.record()
-        torch.cuda.synchronize()
-        if w:
-            best = min(best, start.elapsed_time(end) / iters)
-    return best
 
 
 def main() -> Dict[Tuple[str, str, str], List[float]]:
