@@ -30,8 +30,8 @@ Phases, each raising on failure:
   8. training, a main path: the config-4 CLI (``train/experiments/optflow_combine.py``,
      bf16, batch 10, 240x720 JPEG pairs read and resized to 224x480) on a synthetic
      dataset for 5 steps, with the launch counts set to 0 before and read after (12
-     ``bilinear_sample`` launches and 12 forward and 12 backward ``smoothness_fused``
-     launches a step); every loss component finite; the checkpoint read back into
+     ``bilinear_sample`` launches and one forward and one backward smoothness launch, for
+     its 12 maps, a step); every loss component finite; the checkpoint read back into
      ``DispNet(depth10_flow)`` and its eval forward finite;
   9. step parity: one float32 step with the kernels against one with the plain sampler
      and smoothness term from one init and batch, and the bf16 step's loss against the
@@ -39,43 +39,53 @@ Phases, each raising on failure:
  10. times: the sampler kernel, its plain version, ``grid_sample`` and the bound at scale
      0 and over a step's 12 calls; ms/step and frames/s of the bf16 training step with
      the kernel and with the plain sampler;
- 11. kernel vs plain: ``smoothness_fused`` (forward and backward) against the plain term
-     at config 2's four scales (B=10, 240x720 down to 30x90), on a strided C=1 flow plane
-     of an NCHW [B, 2, H, W] head, a constant and a piecewise-constant map (exact ties)
-     and an odd 37x53 map: the forward within rtol 1e-5 of the float32 and the float64
-     plain term, the backward within 1e-6 max|g| of autograd of the plain term, and the
-     same bits in two runs;
+ 11. kernel vs plain: the smoothness kernels (forward and backward) against the plain
+     term, on single maps (``smoothness_fused``, a group of one) at config 2's four scales
+     (B=10, 240x720 down to 30x90), on a strided C=1 flow plane of an NCHW [B, 2, H, W]
+     head, a constant and a piecewise-constant map (exact ties) and an odd 37x53 map, and
+     on whole steps' groups (``smoothness_fused_group``: config 4's 12 maps, config 2's
+     4, NCHW heads viewed NHWC, at their coefficients): the forward within rtol 1e-5 of
+     the float32 and the float64 plain term, the backward within 1e-6 max|g| of autograd
+     of the plain term, and the same bits in two runs;
  12. training, a main path: the config-2 CLI (``train/experiments/depth_only.py``, bf16,
      batch 10, 240x720) on the same dataset for 5 steps with ``--validation_check 2``,
-     the launch counts set to 0 before and read after (4 forward and 4 backward
-     ``smoothness_fused`` launches a step, 4 forward a validation); every train and val
+     the launch counts set to 0 before and read after (one forward and one backward
+     smoothness launch a step, one forward a validation); every train and val
      record finite; the checkpoint read back into ``DispNet(depth4)``;
- 13. times: the smoothness kernels, the plain term and the bound, forward and backward,
-     at config 2's scale 0 and over a step's calls in configs 2 and 4; ms/step of the
-     bf16 config-2 step with the kernels and with the plain term, in turns;
- 14. kernel vs plain: ``sig_l2_fused`` (forward, and backward for pred and gt) against
-     the plain composition (``ops/sig.py``) at phase 2's four scales (B=1, 192x256 down
+ 13. times: the smoothness kernels and the plain term beside the bound, forward and
+     forward + backward, at config 2's scale 0 and over a step's group in configs 2 and
+     4, each group three ways (one group call, the same kernels called once a map, and
+     the plain term), each way twice in turns; the kernels' device time in a config-4 step (``profile_step``);
+     ms/step of the bf16 config-2 step with the kernels and with the plain term, in turns;
+ 14. kernel vs plain: the sig kernels (forward, and backward for pred and gt) against
+     the plain composition (``ops/sig.py``), on single pairs (``sig_l2_fused``, a group
+     of one) at phase 2's four scales (B=1, 192x256 down
      to 24x32, delta 2), the 5-delta ``full_scales`` call at 192x256 (B=1 and B=8), the
      eval harness's calls at B=16 (phase 20's shapes: the pair net's 5-delta call at
      192x256, the single net's delta-2 calls at four scales), a coarse map where the
      deltas reach past the map, an odd 37x53 map and a strided C=1 plane: the forward
      within rtol 1e-5 of the float32 and the float64 plain version, the backward within
      1e-6 of autograd of the plain version and equal, bit for bit, to
-     ``sig_l2_backward_reference``, and the same bits in two runs;
+     ``sig_l2_backward_reference``, and the same bits in two runs; and on whole steps'
+     groups (``sig_l2_fused_group``: phase 2's 4 pairs, phase 1's 2, the single net's
+     eval batch) at a coefficient, to the same limits, the gather formula taken at it;
  15. training, two main paths: split_training's phase 1 (the truncated DepthPoseNet
      pairwise) and phase 2 (depth4 DispNet over [coarse depth | image]), bf16, batch 1,
      192x256, 5 steps each through ``train_pair`` and ``train_single``, the functions the
      CLI's ``main`` calls, with the launch counts set to 0 before each phase and read
-     after it (2 forward and 2 backward ``sig_l2_fused`` launches a phase-1 step, 4 and 4
-     a phase-2 step); every loss component finite; both checkpoint groups read back into
+     after it (one forward and one backward sig launch a step, for the pairs of scales 2
+     and 3 in phase 1 and of all four in phase 2); every loss component finite; both checkpoint groups read back into
      ``DepthPoseNet`` and a 4-channel ``DispNet(depth4)`` with finite eval forwards;
  16. step parity: one float32 step of each phase with the kernel against one with the
      plain sig composition from one init and batch, and the bf16 step's loss against the
      float32 one;
- 17. times: the sig kernels, the plain composition and the bound, forward and forward +
-     backward, at phase 2's four step calls and at the 5-delta 192x256 B=8 call; ms/step
-     of each phase's bf16 step with the kernel and with the plain version, in turns; and
-     launches a step of each phase from ``train/profile_step.py``.
+ 17. times: the sig kernels and the plain composition beside the bound, forward and
+     forward + backward, over phase 2's four pairs of a step three ways (one group call,
+     the same kernels called once a pair, the plain composition; each twice in turns) and
+     at the 5-delta
+     192x256 B=8 call; ms/step of each phase's bf16 step with the kernel and with the
+     plain version, in turns; and launches, device time and the sig kernels' device time
+     a step of each phase from ``train/profile_step.py``.
  18. kernel vs plain: ``bilinear_sample_fused`` against ``bilinear_sample_reference`` at
      config 3's four scale shapes (B=16, 192x256 down to 24x32, C=3) with the coords of a
      real Euler warp, a 16x24 image at 24x16 coords, taps past every border, NaN and
@@ -86,11 +96,11 @@ Phases, each raising on failure:
  19. training, a main path: config 3 (``train/experiments/depth_then_cam.py``, the
      full-resolution DepthPoseNet, bf16, batch 16, 192x256) for 5 steps through the CLI's
      ``train``, the launch counts read before each batch is taken (each step 4 forward and
-     4 backward fused sampler launches, 4 + 4 smoothness, no sampler kernel launch and no
-     plain sampling); every loss component finite; the checkpoint read back;
+     4 backward fused sampler launches, one forward and one backward smoothness launch for
+     the 4 scales, no sampler kernel launch and no plain sampling); every loss component finite; the checkpoint read back;
  20. evaluation, two main paths: the eval harness's ``--net pair`` (config 3's checkpoint
      as the pair net) and ``--net single`` through its functions on 2 batches of 16 at
-     192x256, the sig launches counted (1 and 4 a batch);
+     192x256, the sig launches counted (one a batch for either net);
  21. serving, two main paths: ``PairPredictor`` (bf16, the folded forward of
      ``infer/fast_pose.py``) on 16 pairs at 192x256 from config 3's full-resolution
      checkpoint, and from split_training's truncated phase-1 checkpoint (the net
@@ -102,12 +112,13 @@ Phases, each raising on failure:
      config-3 step's 4 calls, forward and forward + backward; ms/step of the bf16 step with
      the fused and with the plain sampler, in turns of 5 steps; launches a step from
      ``train/profile_step.py``.
- 23. kernel vs plain: ``cuobjdump -sass`` on the built ``dot_loop``, ``dot_grid`` and
-     ``fused_tail`` libraries, with each kernel's HGMMA, IGMMA, UTMALDG, UTMASTG, HMMA and
-     IMMA counts and its registers and spills (raising unless the probes' bf16 products run
-     on HGMMA and the int8 ones on IGMMA, each loading through UTMALDG, with no HMMA or
-     IMMA left, and unless the tail's bf16 kernel holds HGMMA and UTMALDG and no HMMA; its
-     f32 kernel is listed, not held); then
+ 23. kernel vs plain: ``cuobjdump -sass`` on the built ``dot_loop``, ``dot_grid``,
+     ``fused_tail``, ``smoothness`` and ``sig_l2`` libraries, with each kernel's HGMMA,
+     IGMMA, UTMALDG, UTMASTG, HMMA and IMMA counts and its registers and spills (raising
+     unless the probes' bf16 products run on HGMMA and the int8 ones on IGMMA, each loading
+     through UTMALDG, with no HMMA or IMMA left, and unless the tail's bf16 kernel holds
+     HGMMA and UTMALDG and no HMMA; its f32 kernel and the loss kernels are listed, not
+     held); then
      ``dot_loop`` (1024^3, R = 64) and ``dot_grid`` (4096^3) against their plain versions
      on the probes' operands, int8 and bf16: int8 bit-equal, bf16 within
      ``bf16_rtol(K)`` of max |plain|, the probes' float32 sums likewise, one product
@@ -198,11 +209,18 @@ from tf_depth_estimation_torch.ops.fused_tail import (
 )
 from tf_depth_estimation_torch.ops.schedules import exponential_decay
 from tf_depth_estimation_torch.ops.sig import sig_l2_plain
-from tf_depth_estimation_torch.ops.sig_l2 import sig_l2_backward_reference, sig_l2_fused
+from tf_depth_estimation_torch.ops.sig_l2 import (
+    sig_l2_backward_reference,
+    sig_l2_fused,
+    sig_l2_fused_group,
+    sig_l2_plain_group,
+)
 from tf_depth_estimation_torch.ops.smoothness import (
     second_order_smoothness,
     smoothness_backward_reference,
     smoothness_fused,
+    smoothness_fused_group,
+    smoothness_plain_group,
 )
 from tf_depth_estimation_torch.tools import probe_int8_dot, probe_int8_dot2
 from tf_depth_estimation_torch.tools.common import inputs as probe_inputs
@@ -273,24 +291,26 @@ TOL_BF16_LOSS = 0.02
 # config 2, the second training path (train/experiments/depth_only.py defaults): 240x720
 # pairs at their stored size, batch 10, bf16; validation every 2 steps at batch 1
 C2_HEIGHT, C2_WIDTH, C2_BATCH, C2_STEPS, C2_VAL_CHECK = 240, 720, 10, 5, 2
-# smoothness_fused launches (forward, backward): one term per depth head and scale in
-# config 2, depth and both flow channels per scale in config 4; a validation runs 4
-# forward
-SMOOTH_PER_STEP = {"depth_only": (4, 4), "optflow_combine": (12, 12)}
-SMOOTH_PER_VAL = 4
-# smoothness_fused vs the plain term: the forward sums the same terms in another order
-# (block partials, then a double sum), rtol 1e-5 as tests/test_pallas.py:69; the backward
+# smoothness kernel launches (forward, backward) a step: one group call for the step's
+# terms, a depth head per scale in config 2 (4 maps), depth and both flow channels per
+# scale in config 4 (12); a validation's 4 terms are one forward launch
+SMOOTH_PER_STEP = {"depth_only": (1, 1), "optflow_combine": (1, 1)}
+SMOOTH_PER_VAL = 1
+# the smoothness kernels vs the plain term: the forward sums the same terms in another
+# order (tile sums, then a double sum), rtol 1e-5 as tests/test_pallas.py:69; the backward
 # adds the same sgn(term) / (B count) contributions as autograd in another order, so it
 # is within a few float32 ulp of max|g|
 TOL_SMOOTH_FWD, TOL_SMOOTH_BWD = 1e-5, 1e-6
 # split_training, the fourth and fifth paths (train/experiments/split_training.py
 # defaults): DeMoN scenes at 192x256, batch 1, bf16; 5 steps of each phase
 ST_HEIGHT, ST_WIDTH, ST_BATCH, ST_STEPS = 192, 256, 1, 5
-# sig_l2_fused launches (forward, backward) a step: delta 2 at scales 2 and 3 in phase 1,
-# at all four scales in phase 2
-SIG_PER_STEP = {"pair": (2, 2), "single": (4, 4)}
-# sig_l2_fused vs the plain composition: the forward sums the same per-pixel roots in
-# another order (block partials, then a double sum), rtol 1e-5 as tests/test_pallas.py:56;
+# sig kernel launches (forward, backward) a step: one group call for the step's pairs,
+# delta 2 at scales 2 and 3 in phase 1, at all four scales in phase 2
+SIG_PER_STEP = {"pair": (1, 1), "single": (1, 1)}
+# a sig group's coefficient in the parity and timing phases (a ramped sig weight)
+SIG_COEF = 0.8
+# the sig kernels vs the plain composition: the forward sums the same per-pixel roots in
+# another order (tile sums, then a double sum), rtol 1e-5 as tests/test_pallas.py:56;
 # the backward adds the same terms as autograd, rounded in another order, within 1e-6 of
 # max|g| of autograd's gradient in each case (|g| is ~1e-6 to 1e-2 here, so an absolute
 # 1e-6 as tests/test_pallas.py:66 would let a wrong B=8 gradient through); the gather
@@ -304,13 +324,15 @@ PARITY_STEP = 1000
 # full-resolution DepthPoseNet on DeMoN scenes at 192x256, batch 16, bf16; 5 steps
 C3_HEIGHT, C3_WIDTH, C3_BATCH, C3_STEPS = 192, 256, 16, 5
 # launches a config-3 step: one Euler warp per scale through the fused sampler, and one
-# smoothness term of 1/disp per scale; none of the sampler kernel, no plain sampling
-C3_PER_STEP = {"fused_fwd": 4, "fused_bwd": 4, "smoothness_fwd": 4, "smoothness_bwd": 4,
+# smoothness group call for the terms of 1/disp at the 4 scales; none of the sampler
+# kernel, no plain sampling
+C3_PER_STEP = {"fused_fwd": 4, "fused_bwd": 4, "smoothness_fwd": 1, "smoothness_bwd": 1,
                "bilinear_sample": 0, "plain_samples": 0}
-# the eval harness at config 3's size: batches, and sig_l2_fused forward launches a batch
-# (the 5-delta call at scale 0 for the pair net, delta 2 at 4 scales for the single net)
+# the eval harness at config 3's size: batches, and sig forward launches a batch (one
+# group call: the 5-delta term at scale 0 for the pair net, delta 2 at 4 scales for the
+# single net)
 EVAL_BATCHES = 2
-SIG_PER_EVAL_BATCH = {"pair": 1, "single": 4}
+SIG_PER_EVAL_BATCH = {"pair": 1, "single": 1}
 # the tensor-core probes at the JAX probes' shapes, name -> (M, K, N, repeats):
 # tools/probe_int8_dot.py:26-27 and tools/probe_int8_dot2.py:17
 PROBE_SHAPES = {"dot_loop": (1024, 1024, 1024, 64), "dot_grid": (4096, 4096, 4096, 1)}
@@ -811,9 +833,30 @@ def _smooth_grad(fn, x: torch.Tensor):
     return out.detach(), grad
 
 
+def _smooth_group_run(fn, leaves: list, maps: list, coefs: list):
+    """(total, per_map, d total / d each leaf) of ``fn(maps, coefs)``."""
+    total, per_map = fn(maps, coefs)
+    grads = torch.autograd.grad(total, leaves)
+    return total.detach(), per_map.detach(), grads
+
+
+def _max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|."""
+    scale = b.abs().max().item()
+    return (a - b).abs().max().item() / scale if scale else (a - b).abs().max().item()
+
+
+def _each_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| / |b| over the elements."""
+    return ((a - b).abs() / b.abs()).max().item()
+
+
 def phase_smoothness(device, smi: str) -> dict:
-    """smoothness_fused vs the plain term: forward (float32 and float64 plain), backward
-    (autograd of the plain term, and the gather formula), and the same bits twice."""
+    """The smoothness kernels vs the plain term. Single maps (a group of one): forward
+    (float32 and float64 plain), backward (autograd of the plain term, and the gather
+    formula), and the same bits twice. Whole steps' groups (config 4's 12 maps, config
+    2's 4): total and terms against the plain terms in float32 and float64, each leaf's
+    gradient against autograd of the plain group, and the same bits twice."""
     worst = {"fwd": 0.0, "bwd_rel": 0.0}
     for name, x in smooth_cases(device).items():
         got, grad = _smooth_grad(smoothness_fused, x)
@@ -839,6 +882,34 @@ def phase_smoothness(device, smi: str) -> dict:
             raise AssertionError(f"smoothness {name}: beyond its tolerances")
         worst["fwd"] = max(worst["fwd"], err)
         worst["bwd_rel"] = max(worst["bwd_rel"], gerr / scale if scale else 0.0)
+    for config in ("optflow_combine", "depth_only"):
+        leaves, maps, coefs = step_smooth_group(config, device)
+        got = _smooth_group_run(smoothness_fused_group, leaves, maps, coefs)
+        got2 = _smooth_group_run(smoothness_fused_group, leaves, maps, coefs)
+        ref = _smooth_group_run(smoothness_plain_group, leaves, maps, coefs)
+        terms64 = torch.tensor([second_order_smoothness(m.detach().double()).item()
+                                for m in maps], dtype=torch.float64)
+        total64 = sum(c * t for c, t in zip(coefs, terms64.tolist()))
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], got2[0]) and torch.equal(got[1], got2[1])
+                and all(torch.equal(a, b) for a, b in zip(got[2], got2[2]))):
+            raise AssertionError(f"smoothness group {config}: two runs differ")
+        terms = got[1].cpu()
+        err = _each_rel(terms, ref[1].cpu())
+        err64 = _each_rel(terms.double(), terms64)
+        total_err = max(_rel(got[0].item(), ref[0].item()), _rel(got[0].item(), total64))
+        gerr = max(_max_rel(g, r) for g, r in zip(got[2], ref[2]))
+        px = sum(m.shape[0] * m.shape[1] * m.shape[2] for m in maps)
+        print(f"kernel smoothness group {config} ({len(maps)} maps, {px} pixels): total "
+              f"{got[0].item():.7f}, rel err {total_err:.3e} vs plain f32 and f64; terms "
+              f"max rel err {err:.3e} vs plain f32, {err64:.3e} vs plain f64 (rtol "
+              f"{TOL_SMOOTH_FWD:.0e}); each leaf's gradient within {gerr:.3e} x its |g| max "
+              f"of autograd of the plain group (tolerance {TOL_SMOOTH_BWD:.0e}); two runs "
+              f"bit-equal [{smi}]")
+        if max(err, err64, total_err) > TOL_SMOOTH_FWD or gerr > TOL_SMOOTH_BWD:
+            raise AssertionError(f"smoothness group {config}: beyond its tolerances")
+        worst["fwd"] = max(worst["fwd"], (got[0] - ref[0]).abs().item())
+        worst["bwd_rel"] = max(worst["bwd_rel"], gerr)
     return worst
 
 
@@ -898,69 +969,106 @@ def smooth_bound(pixels: int, backward: bool) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def step_smooth_calls(config: str, device) -> list:
-    """The maps of a step's smoothness calls, as the step's heads reach the loss: config
-    2's 4 depth heads (NCHW [B,1,H,W] viewed NHWC); config 4's depth heads and both
-    channels of its flow heads ([B,2,H,W] viewed NHWC), at each of 4 scales."""
+def step_smooth_group(config: str, device):
+    """(leaves, maps, coefs) of a step's smoothness group, as the step's heads reach the
+    loss: config 2's 4 depth heads (NCHW [B,1,H,W] viewed NHWC); config 4's depth heads
+    and both channels of its flow heads ([B,2,H,W] viewed NHWC), at each of 4 scales; each
+    map at its scale's coefficient, smooth_weight / 2**s. The maps are views of the
+    leaves."""
     g = np.random.RandomState(SEED + 7)
-    B = C2_BATCH if config == "depth_only" else C4_BATCH
-    H, W = (C2_HEIGHT, C2_WIDTH) if config == "depth_only" else (C4_HEIGHT, C4_WIDTH)
-    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
-    calls = []
+    flow = config == "optflow_combine"
+    B, H, W = (C4_BATCH, C4_HEIGHT, C4_WIDTH) if flow else (C2_BATCH, C2_HEIGHT, C2_WIDTH)
+    weight = (LossWeights.optflow_combine() if flow else LossWeights.depth_only()).smooth_weight
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device).requires_grad_(True)
+    leaves, maps, coefs = [], [], []
     for s in range(4):
         h, w = H >> s, W >> s
-        calls.append(t(g.uniform(0, 4, (B, 1, h, w))).permute(0, 2, 3, 1))
-        if config == "optflow_combine":
-            flow = t(g.randn(B, 2, h, w)).permute(0, 2, 3, 1)
-            calls += [flow[..., 0:1], flow[..., 1:2]]
-    return calls
+        depth = t(g.uniform(0, 4, (B, 1, h, w)))
+        leaves.append(depth)
+        maps.append(depth.permute(0, 2, 3, 1))
+        if flow:
+            heads = t(g.randn(B, 2, h, w))
+            leaves.append(heads)
+            maps += [heads.permute(0, 2, 3, 1)[..., 0:1], heads.permute(0, 2, 3, 1)[..., 1:2]]
+        coefs += [weight / 2**s] * (3 if flow else 1)
+    return leaves, maps, coefs
 
 
-def _time_smooth(calls: list) -> dict:
-    """ms of the forward alone and of the forward and backward, kernels and plain term,
-    over ``calls`` (their sum, as the loss takes it)."""
-    leaves = [c.detach().clone().requires_grad_(True) for c in calls]
+def _time_smooth(maps: list, coefs: list) -> dict:
+    """ms of the forward alone and of the forward and backward over a group of maps, three
+    ways: ``group``, one group call as the pipelines make it; ``loop``, the same kernels
+    called once a map (``smoothness_fused``, the pipelines' earlier call pattern);
+    ``plain``, the plain term map by map. The backward runs to a copy of each map as a
+    leaf (the copy keeps a dense map's strides), as in the earlier PRs' timings: in a step
+    the views' own backward serves the other terms that read them too."""
+    leaves = [m.detach().clone().requires_grad_(True) for m in maps]
+    ways = {"group": lambda ms: smoothness_fused_group(ms, coefs)[0],
+            "loop": lambda ms: sum(c * smoothness_fused(m) for c, m in zip(coefs, ms)),
+            "plain": lambda ms: smoothness_plain_group(ms, coefs)[0]}
+    return _time_ways(ways, maps, leaves)
+
+
+def _time_ways(ways: dict, maps: list, leaves: list) -> dict:
+    """ms of each way's forward alone (``ways[name](maps)`` without autograd) and forward
+    and backward (to ``leaves``), in two turns, the ways in their order and then in the
+    reverse one (the host's speed drifts within a run); 50 calls a turn, 20 for the plain
+    way. ``<name>_fwd`` and ``<name>_fwdbwd`` are the turns' mean, ``..._turns`` the
+    turns."""
     out = {}
-    for name, fn in (("kernel", smoothness_fused), ("plain", second_order_smoothness)):
-        iters = 50 if name == "kernel" else 20
+    for name in [*ways, *reversed(ways)]:
+        fn, iters = ways[name], 20 if name == "plain" else 50
         with torch.no_grad():
-            out[f"{name}_fwd"] = time_ms(lambda: [fn(c) for c in calls], iters)
-        out[f"{name}_fwdbwd"] = time_ms(lambda: torch.autograd.grad(
-            sum(fn(c) for c in leaves), leaves), iters)
+            fwd = time_ms(lambda: fn(maps), iters)
+        both = time_ms(lambda: torch.autograd.grad(fn(leaves), leaves), iters)
+        out.setdefault(f"{name}_fwd_turns", []).append(fwd)
+        out.setdefault(f"{name}_fwdbwd_turns", []).append(both)
+    for name in ways:
+        for part in ("fwd", "fwdbwd"):
+            turns = out[f"{name}_{part}_turns"]
+            out[f"{name}_{part}"] = sum(turns) / len(turns)
     return out
 
 
+def _turns(r: dict) -> str:
+    """The forward + backward turns of each way of a ``_time_ways`` row."""
+    return "; ".join(f"{k[:-len('_fwdbwd_turns')]} " + ", ".join(f"{t:.4f}" for t in v)
+                     for k, v in r.items() if k.endswith("_fwdbwd_turns"))
+
+
 def phase_smooth_times(device, smi: str) -> dict:
-    """The kernels against the plain term, forward and backward, at config 2's scale 0
-    (the backward alone too) and over a step's calls in configs 2 and 4."""
-    x = step_smooth_calls("depth_only", device)[0]
+    """The kernels against the plain term, forward and forward + backward, three ways
+    (``_time_smooth``), beside the bound: config 2's scale-0 map alone, and the groups of
+    a config-2 and a config-4 step; then the smoothness kernels' device time in a config-4
+    step (``profile_step``)."""
+    x = step_smooth_group("depth_only", device)[1][0]
     px = x.shape[0] * x.shape[1] * x.shape[2]
-    row = _time_smooth([x])
-    leaf = x.detach().clone().requires_grad_(True)
-    for name, fn in (("kernel", smoothness_fused), ("plain", second_order_smoothness)):
-        out = fn(leaf)   # the backward alone, through autograd as the step runs it
-        row[f"{name}_bwd"] = time_ms(lambda: torch.autograd.grad(out, leaf,
-                                                                 retain_graph=True), 20)
+    row = _time_smooth([x], [1.0])
     bf, by = smooth_bound(px, False)
     bb, _ = smooth_bound(px, True)
-    row.update(bound_fwd=bf, bound_bwd=bb, bound_by=by)
     print(f"time smoothness config 2 scale 0 {tuple(x.shape)}: forward kernel "
-          f"{row['kernel_fwd']:.4f} ms, plain {row['plain_fwd']:.4f} ms, bound {bf:.4f} ms "
-          f"({by}); backward kernel {row['kernel_bwd']:.4f} ms, plain (autograd) "
-          f"{row['plain_bwd']:.4f} ms, bound {bb:.4f} ms; forward+backward kernel "
-          f"{row['kernel_fwdbwd']:.4f} ms, plain {row['plain_fwdbwd']:.4f} ms [{smi}]")
+          f"{row['group_fwd']:.4f} ms, plain {row['plain_fwd']:.4f} ms, bound {bf:.4f} ms "
+          f"({by}); forward+backward kernel {row['group_fwdbwd']:.4f} ms, plain "
+          f"{row['plain_fwdbwd']:.4f} ms, bound {bf + bb:.4f} ms [{smi}]")
+    rows = {"scale0": row}
     for config in ("depth_only", "optflow_combine"):
-        calls = step_smooth_calls(config, device)
-        px = sum(c.shape[0] * c.shape[1] * c.shape[2] for c in calls)
-        r = _time_smooth(calls)
-        bf, _ = smooth_bound(px, False)
+        _, maps, coefs = step_smooth_group(config, device)
+        px = sum(m.shape[0] * m.shape[1] * m.shape[2] for m in maps)
+        r = _time_smooth(maps, coefs)
+        bf, by = smooth_bound(px, False)
         bb, _ = smooth_bound(px, True)
-        row[config] = {**r, "bound_fwd": bf, "bound_bwd": bb}
-        print(f"time smoothness, the {len(calls)} calls of a {config} step ({px} pixels): "
-              f"forward kernel {r['kernel_fwd']:.4f} ms, plain {r['plain_fwd']:.4f} ms, bound "
-              f"{bf:.4f} ms; forward+backward kernel {r['kernel_fwdbwd']:.4f} ms, plain "
-              f"{r['plain_fwdbwd']:.4f} ms, bound {bf + bb:.4f} ms [{smi}]")
-    return row
+        rows[config] = {**r, "bound_fwd": bf, "bound_bwd": bb, "bound_by": by}
+        print(f"time smoothness, the {len(maps)} maps of a {config} step ({px} pixels): "
+              f"forward group {r['group_fwd']:.4f} ms, per-map loop {r['loop_fwd']:.4f} ms, "
+              f"plain {r['plain_fwd']:.4f} ms, bound {bf:.4f} ms ({by}); forward+backward "
+              f"group {r['group_fwdbwd']:.4f} ms, per-map loop {r['loop_fwdbwd']:.4f} ms, "
+              f"plain {r['plain_fwdbwd']:.4f} ms, bound {bf + bb:.4f} ms; turns "
+              f"{_turns(r)} [{smi}]")
+    prof = profile_step.profile(steps=1, device=device, config="optflow_combine", top=0)
+    rows["optflow_combine"]["device_ms"] = prof["kinds"].get("smoothness kernels", 0.0)
+    print(f"profile optflow_combine: smoothness kernels {rows['optflow_combine']['device_ms']:.4f}"
+          f" ms of device time a step, of {prof['kernel_ms']:.2f} ms in "
+          f"{prof['launches']} launches [{smi}]")
+    return rows
 
 
 def phase_depth_only_times(device, smi: str) -> dict:
@@ -1037,9 +1145,13 @@ def _sig_grad(fn, base, view, gt, deltas):
 
 
 def phase_sig(device, smi: str) -> dict:
-    """sig_l2_fused vs the plain composition: forward (float32 and float64 plain),
-    backward for pred and gt (autograd of the plain version, and the gather formula), and
-    the same bits twice."""
+    """The sig kernels vs the plain composition. Single pairs (a group of one): forward
+    (float32 and float64 plain), backward for pred and gt (autograd of the plain version,
+    and the gather formula), and the same bits twice. Whole steps' groups (split_training's
+    phase 2 and phase 1, the single net's eval batch) at ``SIG_COEF``: total and terms
+    against the plain composition in float32 and float64, d pred and d gt of each pair
+    against autograd of the plain group and, bit for bit, the gather formula at the
+    coefficient, and the same bits twice."""
     worst = {"fwd": 0.0, "bwd": 0.0}
     for name, (base, view, gt, deltas) in sig_cases(device).items():
         got, dp, dg = _sig_grad(sig_l2_fused, base, view, gt, deltas)
@@ -1068,7 +1180,57 @@ def phase_sig(device, smi: str) -> dict:
             raise AssertionError(f"sig {name}: beyond its tolerances")
         worst["fwd"] = max(worst["fwd"], err)
         worst["bwd"] = max(worst["bwd"], ep, eg)
+    cases = sig_cases(device)
+    for label, names in (("phase-2 step", [f"phase2 s{s}" for s in range(4)]),
+                         ("phase-1 step", [f"phase2 s{s}" for s in (2, 3)]),
+                         (f"single-net eval batch, B={C3_BATCH}",
+                          [f"eval single B={C3_BATCH} s{s}" for s in range(4)])):
+        group = [cases[n] for n in names]
+        coefs = [SIG_COEF] * len(group)
+        got = _sig_group_run(sig_l2_fused_group, group, coefs)
+        got2 = _sig_group_run(sig_l2_fused_group, group, coefs)
+        ref = _sig_group_run(sig_l2_plain_group, group, coefs)
+        terms64 = torch.tensor([sig_l2_plain(view(base).double(), gt.double(), deltas).item()
+                                for base, view, gt, deltas in group], dtype=torch.float64)
+        total64 = sum(c * t for c, t in zip(coefs, terms64.tolist()))
+        gather = [sig_l2_backward_reference(view(base), gt,
+                                            torch.tensor(c, device=device), deltas)
+                  for (base, view, gt, deltas), c in zip(group, coefs)]
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], got2[0]) and torch.equal(got[1], got2[1])
+                and all(torch.equal(a, b) for a, b in zip(got[2], got2[2]))):
+            raise AssertionError(f"sig group {label}: two runs differ")
+        terms = got[1].cpu()
+        err = _each_rel(terms, ref[1].cpu())
+        err64 = _each_rel(terms.double(), terms64)
+        total_err = max(_rel(got[0].item(), ref[0].item()), _rel(got[0].item(), total64))
+        gerr = max(_max_rel(g, r) for g, r in zip(got[2], ref[2]))
+        K = len(group)
+        gather_equal = all(torch.equal(got[2][k], gp) and torch.equal(got[2][K + k], gg)
+                           for k, (gp, gg) in enumerate(gather))
+        print(f"kernel sig_l2 group, {label} ({K} pairs, deltas {group[0][3]}, coefficient "
+              f"{SIG_COEF}): total {got[0].item():.7f}, rel err {total_err:.3e} vs plain f32 "
+              f"and f64; terms max rel err {err:.3e} vs plain f32, {err64:.3e} vs plain f64 "
+              f"(rtol {TOL_SIG_FWD:.0e}); d pred and d gt of each pair within {gerr:.3e} x "
+              f"its |g| max of autograd of the plain group (tolerance {TOL_SIG_BWD:.0e}); "
+              f"bit-equal to the gather formula at the coefficient: {gather_equal}; two runs "
+              f"bit-equal [{smi}]")
+        if max(err, err64, total_err) > TOL_SIG_FWD or gerr > TOL_SIG_BWD or not gather_equal:
+            raise AssertionError(f"sig group {label}: beyond its tolerances")
+        worst["fwd"] = max(worst["fwd"], (got[0] - ref[0]).abs().item())
     return worst
+
+
+def _sig_group_run(fn, group: list, coefs: list):
+    """(total, per_map, [d pred of each pair] + [d gt of each pair]) of ``fn`` on a group
+    of ``sig_cases`` entries (one set of deltas), the predictions views of leaves."""
+    leaves = [b.detach().clone().requires_grad_(True) for b, _, _, _ in group]
+    gts = [g.detach().clone().requires_grad_(True) for _, _, g, _ in group]
+    total, per_map = fn([v(b) for b, (_, v, _, _) in zip(leaves, group)], gts,
+                        group[0][3], coefs)
+    grads = torch.autograd.grad(total, leaves + gts)
+    dp = [v(g) for g, (_, v, _, _) in zip(grads, group)]
+    return total.detach(), per_map.detach(), dp + list(grads[len(group):])
 
 
 def demon_batches(batch: int, height: int, width: int, device, seed: int = SEED):
@@ -1222,39 +1384,41 @@ def sig_bound(calls: list, backward: bool) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _time_sig(calls: list) -> dict:
+def _time_sig(calls: list, coefs: list) -> dict:
     """ms of the forward alone and of the forward and backward (d pred, as the loss
-    needs), kernel and plain composition, over ``calls`` (their sum, as the loss takes
-    it)."""
+    needs) over ``calls`` [(pred, gt, deltas)] (one set of deltas), three ways: ``group``,
+    one group call as the pipelines make it; ``loop``, the same kernels called once a pair
+    (``sig_l2_fused``, the pipelines' earlier call pattern); ``plain``, the plain
+    composition pair by pair."""
     leaves = [p.detach().clone().requires_grad_(True) for p, _, _ in calls]
-    out = {}
-    for name, fn in (("kernel", sig_l2_fused), ("plain", sig_l2_plain)):
-        iters = 50 if name == "kernel" else 20
-        with torch.no_grad():
-            out[f"{name}_fwd"] = time_ms(lambda: [fn(p, g, d) for p, g, d in calls], iters)
-        out[f"{name}_fwdbwd"] = time_ms(lambda: torch.autograd.grad(
-            sum(fn(p, g, d) for p, (_, g, d) in zip(leaves, calls)), leaves), iters)
-    return out
+    gts, deltas = [g for _, g, _ in calls], calls[0][2]
+    ways = {"group": lambda ps: sig_l2_fused_group(ps, gts, deltas, coefs)[0],
+            "loop": lambda ps: sum(c * sig_l2_fused(p, g, deltas)
+                                   for c, p, g in zip(coefs, ps, gts)),
+            "plain": lambda ps: sig_l2_plain_group(ps, gts, deltas, coefs)[0]}
+    return _time_ways(ways, [p for p, _, _ in calls], leaves)
 
 
 def phase_sig_times(device, smi: str) -> dict:
-    """The sig kernels against the plain composition at phase 2's four step calls (the
-    main path's shapes) and at the 5-delta 192x256 B=8 call."""
+    """The sig kernels against the plain composition three ways (``_time_sig``), beside
+    the bound: phase 2's four pairs of a step (the main path's shapes) and the 5-delta
+    192x256 B=8 call."""
     cases = sig_cases(device)
     rows = {}
-    for label, names in (("phase-2 step, 4 calls", [f"phase2 s{s}" for s in range(4)]),
+    for label, names in (("phase-2 step, 4 pairs", [f"phase2 s{s}" for s in range(4)]),
                          ("5-delta 192x256 B=8", ["full_scales B=8"])):
         calls = [(cases[n][0], cases[n][2], cases[n][3]) for n in names]
-        r = _time_sig(calls)
+        r = _time_sig(calls, [SIG_COEF] * len(calls))
         bf, by = sig_bound(calls, False)
         bb, by_bwd = sig_bound(calls, True)
         # forward+backward: the larger part names what bounds the pair
         r.update(bound_fwd=bf, bound_bwd=bb, bound_by=by_bwd if bb >= bf else by)
         rows[label] = r
-        print(f"time sig_l2, {label}: forward kernel {r['kernel_fwd']:.4f} ms, plain "
-              f"{r['plain_fwd']:.4f} ms, bound {bf:.5f} ms ({by}); forward+backward kernel "
-              f"{r['kernel_fwdbwd']:.4f} ms, plain {r['plain_fwdbwd']:.4f} ms, bound "
-              f"{bf + bb:.5f} ms ({r['bound_by']}) [{smi}]")
+        print(f"time sig_l2, {label}: forward group {r['group_fwd']:.4f} ms, per-pair loop "
+              f"{r['loop_fwd']:.4f} ms, plain {r['plain_fwd']:.4f} ms, bound {bf:.5f} ms "
+              f"({by}); forward+backward group {r['group_fwdbwd']:.4f} ms, per-pair loop "
+              f"{r['loop_fwdbwd']:.4f} ms, plain {r['plain_fwdbwd']:.4f} ms, bound "
+              f"{bf + bb:.5f} ms ({r['bound_by']}); turns {_turns(r)} [{smi}]")
     return rows
 
 
@@ -1279,8 +1443,12 @@ def phase_split_times(device, smi: str) -> dict:
         for name in ("kernel", "plain"):
             prof = profile_step.profile(steps=1, device=device, config=config, sig=name,
                                         top=0)
+            sig_ms = prof["kinds"].get("sig kernels", 0.0)
             out[(config, name)].update(launches=prof["launches"],
-                                       kernel_ms=prof["kernel_ms"])
+                                       kernel_ms=prof["kernel_ms"], sig_ms=sig_ms)
+            print(f"profile {config} sig={name}: {prof['launches']} launches, "
+                  f"{prof['kernel_ms']:.2f} ms of device time a step, sig kernels "
+                  f"{sig_ms:.4f} ms [{smi}]")
     return out
 
 
@@ -1693,9 +1861,9 @@ def probe_cases(device, shapes: dict = None) -> dict:
 
 
 def _kernel_label(mangled: str) -> str:
-    """A readable name for a kernel of the probe or tail libraries: dot_kernel's element
-    type (int8 reads B^T, bf16 B), tile width and loop or grid; the transpose and reduce
-    kernels; the tail's bf16 (tensor-core) and f32 kernels."""
+    """A readable name for a kernel of the probe, tail or loss libraries: dot_kernel's
+    element type (int8 reads B^T, bf16 B), tile width and loop or grid; the transpose and
+    reduce kernels; the loss kernels; the tail's bf16 (tensor-core) and f32 kernels."""
     m = re.search(r"dot_kernelI(13__nv_bfloat16|a)Li(\d+)ELb([01])E", mangled)
     if m:
         return (f"dot_kernel<{'bf16' if m.group(1) != 'a' else 'int8'}, BN={m.group(2)}, "
@@ -1703,6 +1871,9 @@ def _kernel_label(mangled: str) -> str:
     for kind in ("transpose_kernel", "reduce_kernel"):
         if kind in mangled:
             return f"{kind}<{mangled.split(kind + 'I', 1)[1][:1]}>"
+    m = re.search(r"(smooth|sig)_group_(forward|backward)", mangled)
+    if m:
+        return m.group(0)
     if "tail_bf16_kernel" in mangled:
         return "tail_bf16_kernel"
     if "fused_tail_kernel" in mangled:
@@ -1750,11 +1921,12 @@ def hold_tail_sass(counts: dict) -> None:
 
 
 def phase_sass() -> dict:
-    """``sass_counts`` of the ``dot_grid``, ``dot_loop`` and ``fused_tail`` libraries.
-    Raises unless each probe library's bf16 products run on HGMMA and its int8 products
-    on IGMMA, each product kernel loads through UTMALDG, and neither probe library holds
-    an HMMA or IMMA (wmma's mma.sync); and unless ``hold_tail_sass`` passes. Returns
-    (library, label) -> counts."""
+    """``sass_counts`` of the ``dot_grid``, ``dot_loop``, ``fused_tail``, ``smoothness``
+    and ``sig_l2`` libraries. Raises unless each probe library's bf16 products run on
+    HGMMA and its int8 products on IGMMA, each product kernel loads through UTMALDG, and
+    neither probe library holds an HMMA or IMMA (wmma's mma.sync); and unless
+    ``hold_tail_sass`` passes. The loss kernels are listed with their registers and
+    spills, not held. Returns (library, label) -> counts."""
     out = {}
     for name in ("dot_grid", "dot_loop"):
         kinds = set()
@@ -1773,6 +1945,8 @@ def phase_sass() -> dict:
     tail = sass_counts("fused_tail")
     hold_tail_sass(tail)
     out.update({("fused_tail", label): counts for label, counts in tail.items()})
+    for name in ("smoothness", "sig_l2"):
+        out.update({(name, label): counts for label, counts in sass_counts(name).items()})
     return out
 
 
@@ -2160,13 +2334,13 @@ def main() -> None:
     srow = phase_sampler_times("cuda", info["smi"])
     phase_training_times("cuda", batch, info["smi"])
     stamp("config-4 times")
-    mrow = phase_smooth_times("cuda", info["smi"])
+    mrow = phase_smooth_times("cuda", info["smi"])["optflow_combine"]
     phase_depth_only_times("cuda", info["smi"])
     stamp("smoothness and config-2 times")
     phase_split_parity("cuda", info["smi"])
     stamp("split_training step parity")
-    sig_row = phase_sig_times("cuda", info["smi"])["phase-2 step, 4 calls"]
-    phase_split_times("cuda", info["smi"])
+    sig_row = phase_sig_times("cuda", info["smi"])["phase-2 step, 4 pairs"]
+    split_rows = phase_split_times("cuda", info["smi"])
     stamp("sig and split_training times")
     phase_depth_then_cam_parity("cuda", info["smi"])
     frow = phase_fused_times("cuda", info["smi"])
@@ -2219,25 +2393,32 @@ def main() -> None:
         # the same function (normalised coordinates, no wmask)
         "library_ms": srow["library_ms"],
     }, {
-        # forward and backward of one call at config 2's scale 0 (B=10, 240x720);
-        # launches: forward + backward calls in the config-2 run
+        # forward and backward of a config-4 step's group (12 maps, B=10, 224x480 down to
+        # 28x60); launches: forward + backward in the config-4 run; per_map_loop_ms: the
+        # same kernels called once a map; device_ms: the kernels' device time in a config-4
+        # step (profile_step)
         "name": "smoothness", "route": "cuda",
         "source": "tf_depth_estimation_torch/csrc/smoothness.cu",
         "replaces": "tf_depth_estimation_tpu/ops/pallas_losses.py:140",
-        "launches": depth_counts["smoothness_fwd"] + depth_counts["smoothness_bwd"],
+        "launches": training["smoothness_fwd"] + training["smoothness_bwd"],
         "max_abs_err": smooth_errs["fwd"],
-        "ms": mrow["kernel_fwdbwd"], "plain_ms": mrow["plain_fwdbwd"],
+        "ms": mrow["group_fwdbwd"], "plain_ms": mrow["plain_fwdbwd"],
+        "per_map_loop_ms": mrow["loop_fwdbwd"], "device_ms": mrow["device_ms"],
         "bound_ms": mrow["bound_fwd"] + mrow["bound_bwd"], "bound_by": mrow["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the same function
     }, {
-        # forward and backward of phase 2's four calls a step (B=1, 192x256 down to 24x32,
-        # delta 2); launches: forward + backward calls in both phases' runs
+        # forward and backward of phase 2's group of a step (4 pairs, B=1, 192x256 down to
+        # 24x32, delta 2); launches: forward + backward in both phases' runs;
+        # per_map_loop_ms: the same kernels called once a pair; device_ms: the kernels'
+        # device time in a phase-2 step (profile_step)
         "name": "sig_l2", "route": "cuda",
         "source": "tf_depth_estimation_torch/csrc/sig_l2.cu",
         "replaces": "tf_depth_estimation_tpu/ops/pallas_losses.py:63",
         "launches": sum(split[p]["sig_fwd"] + split[p]["sig_bwd"] for p in SIG_PER_STEP),
         "max_abs_err": sig_errs["fwd"],
-        "ms": sig_row["kernel_fwdbwd"], "plain_ms": sig_row["plain_fwdbwd"],
+        "ms": sig_row["group_fwdbwd"], "plain_ms": sig_row["plain_fwdbwd"],
+        "per_map_loop_ms": sig_row["loop_fwdbwd"],
+        "device_ms": split_rows[("split_single", "kernel")]["sig_ms"],
         "bound_ms": sig_row["bound_fwd"] + sig_row["bound_bwd"],
         "bound_by": sig_row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the same function

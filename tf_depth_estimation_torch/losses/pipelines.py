@@ -4,10 +4,11 @@ Each mirrors one reference loss graph, takes the predictions and the batch (NHWC
 the JAX package) and returns ``(total, components)``. Ported so far: ``depth_only_loss``
 and ``depth_only_val_loss`` (BASELINE config 2), ``depth_then_cam_loss`` (config 3),
 ``optflow_combine_loss`` (config 4), and ``pairwise_depth_loss`` and ``single_depth_loss``
-(the two phases of ``split_training``); the others come with their experiments. Every smoothness term goes through
-``ops/smoothness.py:smoothness_fused`` and every sig term through
-``ops/sig_l2.py:sig_l2_fused``: the CUDA kernels on the GPU, the plain versions on the
-CPU.
+(the two phases of ``split_training``); the others come with their experiments. The
+smoothness terms of a loss go through one call of
+``ops/smoothness.py:smoothness_fused_group`` and its sig terms through one of
+``ops/sig_l2.py:sig_l2_fused_group``, each map at its coefficient: one CUDA launch each
+way on the GPU, the plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -31,8 +32,8 @@ from tf_depth_estimation_torch.losses.config import LossWeights
 from tf_depth_estimation_torch.ops.nonfinite import replace_nonfinite
 from tf_depth_estimation_torch.ops.resize import resize_area
 from tf_depth_estimation_torch.ops.schedules import ease_out_quad
-from tf_depth_estimation_torch.ops.sig_l2 import sig_l2_fused
-from tf_depth_estimation_torch.ops.smoothness import smoothness_fused
+from tf_depth_estimation_torch.ops.sig_l2 import sig_l2_fused_group
+from tf_depth_estimation_torch.ops.smoothness import smoothness_fused_group
 
 _SIG_EPS = 1e-6
 
@@ -42,10 +43,25 @@ def _area(x: torch.Tensor, hw) -> torch.Tensor:
     return resize_area(x.permute(0, 3, 1, 2), hw).permute(0, 2, 3, 1).contiguous()
 
 
-def _sig_loss(pred: torch.Tensor, gt: torch.Tensor, deltas: Sequence[int]) -> torch.Tensor:
-    """sig-image L2 between prediction and GT (ref ``my_losses.py:78-82``), through the
-    kernel's wrapper."""
-    return sig_l2_fused(pred, gt, deltas, 0.001, _SIG_EPS)
+def _sig_loss(preds: Sequence[torch.Tensor], gts: Sequence[torch.Tensor],
+              deltas: Sequence[int], weight: float) -> torch.Tensor:
+    """``weight`` times the sum of the sig-image L2 losses between each prediction and its
+    GT (ref ``my_losses.py:78-82``), in one call of the kernel's group wrapper; 0 for no
+    prediction."""
+    if not preds:
+        return 0.0
+    return sig_l2_fused_group(preds, gts, deltas, [weight] * len(preds), 0.001, _SIG_EPS)[0]
+
+
+def _smooth_loss(maps: Sequence[torch.Tensor], coefs: Sequence[float]) -> torch.Tensor:
+    """sum_k coefs[k] * second-order smoothness of maps[k], in one call of the kernel's
+    group wrapper."""
+    return smoothness_fused_group(maps, coefs)[0]
+
+
+def _smooth_coefs(w: LossWeights, n: int) -> list:
+    """The smoothness weight of each of ``n`` scales, ``smooth_weight / 2**s``."""
+    return [w.smooth_weight / 2**s for s in range(n)]
 
 
 def _sig_ramp(step: int, w: LossWeights) -> float:
@@ -58,9 +74,9 @@ def depth_only_loss(pred_depths: Sequence[torch.Tensor], label: torch.Tensor,
     """Supervised depth, BASELINE config 2 (ref ``train_depth_only.py:162-219``): per scale
     a plain (unguarded) L1 to the area-resized label and the smoothness of the raw
     prediction."""
-    depth_loss = smooth_loss = 0.0
+    depth_loss = 0.0
+    smooth_loss = _smooth_loss(pred_depths[:w.num_scales], _smooth_coefs(w, w.num_scales))
     for s in range(w.num_scales):
-        smooth_loss += w.smooth_weight / 2**s * smoothness_fused(pred_depths[s])
         curr_label = _area(label, w.scale_hw(s))
         depth_loss += (curr_label - pred_depths[s]).abs().mean() * w.depth_weight / 2**s
     total = depth_loss + smooth_loss
@@ -71,9 +87,9 @@ def depth_only_val_loss(pred_depths: Sequence[torch.Tensor], label: torch.Tensor
                         w: LossWeights):
     """Config 2's validation branch (ref ``train_depth_only.py:229-253``): per-scale
     si-log-RMSE and smoothness."""
-    depth_loss = smooth_loss = 0.0
+    depth_loss = 0.0
+    smooth_loss = _smooth_loss(pred_depths[:w.num_scales], _smooth_coefs(w, w.num_scales))
     for s in range(w.num_scales):
-        smooth_loss += w.smooth_weight / 2**s * smoothness_fused(pred_depths[s])
         curr_label = _area(label, w.scale_hw(s))
         depth_loss += si_log_rmse(curr_label, pred_depths[s]) * w.depth_weight / 2**s
     total = depth_loss + smooth_loss
@@ -91,11 +107,12 @@ def depth_then_cam_loss(image_left: torch.Tensor, image_right: torch.Tensor,
     the photometric term, as in the reference). Over ``min(len(pred_disps),
     w.num_scales)`` scales, as the JAX package iterates (the full-resolution net gives 4).
     ``pred_poses`` [B, 1, 6]; ``intrinsics`` [B, S, 3, 3]; the warps take ``w.sampler``."""
-    smooth_loss = pixel_loss = exp_loss = 0.0
+    pixel_loss = exp_loss = 0.0
     B = image_left.shape[0]
-    for s in range(min(len(pred_disps), w.num_scales)):
+    n = min(len(pred_disps), w.num_scales)
+    smooth_loss = _smooth_loss([1.0 / pred_disps[s] for s in range(n)], _smooth_coefs(w, n))
+    for s in range(n):
         hw = w.scale_hw(s)
-        smooth_loss += w.smooth_weight / 2**s * smoothness_fused(1.0 / pred_disps[s])
         curr_left = _area(image_left, hw)
         curr_right = _area(image_right, hw)
         warp = projective_inverse_warp(curr_right, 1.0 / pred_disps[s][..., 0],
@@ -126,12 +143,13 @@ def optflow_combine_loss(image_left: torch.Tensor, image_right: torch.Tensor,
     photometric error of the depth warp and of the flow warp, and flow supervised by the
     GT-depth warp's grid. Three warps per scale: GT depth, predicted depth, flow.
     ``tgt2src_proj`` [B, 4, 4]; ``intrinsics`` [B, S, 3, 3]."""
-    depth_loss = smooth_loss = pixel_loss = optflow_loss = 0.0
+    depth_loss = pixel_loss = optflow_loss = 0.0
+    smooth_loss = _smooth_loss(
+        [m for s in range(w.num_scales)
+         for m in (pred_depths[s], pred_flow_x[s], pred_flow_y[s])],
+        [c for c in _smooth_coefs(w, w.num_scales) for _ in range(3)])
     for s in range(w.num_scales):
         hw = w.scale_hw(s)
-        smooth_loss += w.smooth_weight / 2**s * (
-            smoothness_fused(pred_depths[s]) + smoothness_fused(pred_flow_x[s])
-            + smoothness_fused(pred_flow_y[s]))
         curr_label = _area(label, hw)
         curr_left = _area(image_left, hw)
         curr_right = _area(image_right, hw)
@@ -165,11 +183,11 @@ def single_depth_loss(pred_depths: Sequence[torch.Tensor], label: torch.Tensor, 
     """``compute_loss_single_depth`` (``my_losses.py:46-96``), split_training's phase 2:
     per scale a guarded L1 to the area-resized label and the ramped sig loss. The
     reference comments its smoothness term out; it stays 0."""
-    depth_loss = sig_loss = smooth_loss = 0.0
-    sig_w = _sig_ramp(step, w)
+    depth_loss = smooth_loss = 0.0
+    labels = [_area(label, w.scale_hw(s)) for s in range(w.num_scales)]
+    sig_loss = _sig_loss(pred_depths[:w.num_scales], labels, sig_deltas, _sig_ramp(step, w))
     for s in range(w.num_scales):
-        curr_label = _area(label, w.scale_hw(s))
-        sig_loss += sig_w * _sig_loss(pred_depths[s], curr_label, sig_deltas)
+        curr_label = labels[s]
         diff = replace_nonfinite(curr_label - pred_depths[s])
         depth_loss += diff.abs().mean() * w.depth_weight / 2**s
     total = depth_loss + smooth_loss + sig_loss
@@ -199,7 +217,7 @@ def pairwise_depth_loss(image_left: torch.Tensor, image_right: torch.Tensor,
     sig loss always; the photometric, explainability and left/right consistency terms
     gated on their weights as in JAX. ``gt_right_cam`` [B, 6] is [translation |
     rotation]; ``intrinsics`` [B, S, 3, 3]; the warps take ``w.sampler``."""
-    depth_loss = pixel_loss = exp_loss = consist_loss = sig_loss = 0.0
+    depth_loss = pixel_loss = exp_loss = consist_loss = 0.0
     sig_w = _sig_ramp(step, w)
     gt_l2r = pose_vec_to_mat(gt_right_cam, "angleaxis")
     gt_r2l = invert_transform(gt_l2r)
@@ -213,18 +231,20 @@ def pairwise_depth_loss(image_left: torch.Tensor, image_right: torch.Tensor,
 
     if full_scales:
         scales, offset = range(w.num_scales), 0
-        sig_loss += sig_w * _sig_loss(pred_depth_left[0], label, (1, 2, 4, 8, 16))
     else:
         scales, offset = range(2, w.num_scales), 2
+    labels = [_area(label, w.scale_hw(s)) for s in scales]
+    if full_scales:
+        sig_loss = _sig_loss(pred_depth_left[:1], [label], (1, 2, 4, 8, 16), sig_w)
+    else:
+        sig_loss = _sig_loss([pred_depth_left[s - offset] for s in scales], labels, (2,),
+                             sig_w)
 
-    for s in scales:
+    for s, curr_label in zip(scales, labels):
         k = s - offset
         hw = w.scale_hw(s)
-        curr_label = _area(label, hw)
         curr_left = _area(image_left, hw)
         curr_right = _area(image_right, hw)
-        if not full_scales:
-            sig_loss += sig_w * _sig_loss(pred_depth_left[k], curr_label, (2,))
         diff = replace_nonfinite(curr_label - pred_depth_left[k])
         depth_loss += diff.abs().mean() * w.depth_weight / 2**s
 

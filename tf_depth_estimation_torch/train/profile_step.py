@@ -32,11 +32,11 @@ from tf_depth_estimation_torch.data.demon import DemonReaderParams, augment, pre
 from tf_depth_estimation_torch.data.pipeline import BatchLoader, to_device
 from tf_depth_estimation_torch.data.synthetic import demon_record, make_pair_scene, pose_matrix
 from tf_depth_estimation_torch.losses import pipelines
-from tf_depth_estimation_torch.losses.basic import second_order_smoothness
 from tf_depth_estimation_torch.losses.config import LossWeights
 from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
 from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
-from tf_depth_estimation_torch.ops.sig import sig_l2_plain
+from tf_depth_estimation_torch.ops.sig_l2 import sig_l2_plain_group
+from tf_depth_estimation_torch.ops.smoothness import smoothness_plain_group
 from tf_depth_estimation_torch.train.experiments.split_training import single_batches
 from tf_depth_estimation_torch.train.state import create_train_state
 from tf_depth_estimation_torch.train.steps import (
@@ -62,25 +62,27 @@ KINDS = (("bilinear_sample", "bilinear_sample kernel"),
 @contextlib.contextmanager
 def plain_smoothness():
     """Within the block the loss pipelines compute their smoothness terms with the plain
-    version instead of ``smoothness_fused``: a yardstick for measurements only."""
-    saved = pipelines.smoothness_fused
-    pipelines.smoothness_fused = second_order_smoothness
+    version (``smoothness_plain_group``) instead of ``smoothness_fused_group``: a
+    yardstick for measurements only."""
+    saved = pipelines.smoothness_fused_group
+    pipelines.smoothness_fused_group = smoothness_plain_group
     try:
         yield
     finally:
-        pipelines.smoothness_fused = saved
+        pipelines.smoothness_fused_group = saved
 
 
 @contextlib.contextmanager
 def plain_sig():
     """Within the block the loss pipelines compute their sig terms with the plain
-    composition instead of ``sig_l2_fused``: a yardstick for measurements only."""
-    saved = pipelines.sig_l2_fused
-    pipelines.sig_l2_fused = sig_l2_plain
+    composition (``sig_l2_plain_group``) instead of ``sig_l2_fused_group``: a yardstick
+    for measurements only."""
+    saved = pipelines.sig_l2_fused_group
+    pipelines.sig_l2_fused_group = sig_l2_plain_group
     try:
         yield
     finally:
-        pipelines.sig_l2_fused = saved
+        pipelines.sig_l2_fused_group = saved
 
 
 def kind_of(name: str) -> str:
