@@ -24,21 +24,29 @@ Phases, each raising on failure:
   6. times with CUDA events: the tail kernel, its plain version, its bound and the native
      chain of the same layers (``infer/fast.py:native_tail``, cuDNN; a yardstick of several
      calls) at batch 8 and 64, and the bf16 forward's frames/s at batch 64;
-  7. kernel vs plain: ``bilinear_sample`` against ``bilinear_sample_reference`` at config
-     4's shapes (B=10, 224x480x3, pixels in [0, 255]) with the coords of a real depth warp,
-     wild coords, exact-integer coords and an odd non-square size; forward and dcoords;
+  7. kernel vs plain: ``bilinear_sample_group`` on a config-4 step's 12 warps (B=10,
+     224x480 down to 28x60, pixels in [0, 255], a GT, a predicted-depth and a flow warp of
+     each scale's image; dcoords on the 8 that need them): one launch each way, out and
+     wmask bit-equal to the plain version, dcoords within the limit of autograd of the
+     plain version and the same bits twice; then ``bilinear_sample`` (a group of one) at
+     scale 0 with the coords of a real depth warp (with dimgs), wild coords, exact-integer
+     coords and an odd non-square size: the forward bit-equal, dcoords and dimgs within
+     the limit;
   8. training, a main path: the config-4 CLI (``train/experiments/optflow_combine.py``,
      bf16, batch 10, 240x720 JPEG pairs read and resized to 224x480) on a synthetic
-     dataset for 5 steps, with the launch counts set to 0 before and read after (12
-     ``bilinear_sample`` launches and one forward and one backward smoothness launch, for
-     its 12 maps, a step); every loss component finite; the checkpoint read back into
-     ``DispNet(depth10_flow)`` and its eval forward finite;
+     dataset for 5 steps, with the launch counts set to 0 before and read after (one
+     forward and one backward sampler launch for the step's 12 warps, no plain sampling,
+     and one forward and one backward smoothness launch, for its 12 maps, a step); every
+     loss component finite; the checkpoint read back into ``DispNet(depth10_flow)`` and
+     its eval forward finite;
   9. step parity: one float32 step with the kernels against one with the plain sampler
      and smoothness term from one init and batch, and the bf16 step's loss against the
      float32 one;
- 10. times: the sampler kernel, its plain version, ``grid_sample`` and the bound at scale
-     0 and over a step's 12 calls; ms/step and frames/s of the bf16 training step with
-     the kernel and with the plain sampler;
+ 10. times (``tools/sampler_units.py``): a config-4 step's 12 warps three ways (one group
+     call, the same kernels once a warp, the plain version) and ``grid_sample``, forward
+     and forward + backward, each twice in turns, beside the bound, with each way's device
+     time; the sampler kernels' device time in a config-4 step (``profile_step``); ms/step
+     and frames/s of the bf16 training step with the kernels and with the plain sampler;
  11. kernel vs plain: the smoothness kernels (forward and backward) against the plain
      term, on single maps (``smoothness_fused``, a group of one) at config 2's four scales
      (B=10, 240x720 down to 30x90), on a strided C=1 flow plane of an NCHW [B, 2, H, W]
@@ -86,18 +94,19 @@ Phases, each raising on failure:
      192x256 B=8 call; ms/step of each phase's bf16 step with the kernel and with the
      plain version, in turns; and launches, device time and the sig kernels' device time
      a step of each phase from ``train/profile_step.py``.
- 18. kernel vs plain: ``bilinear_sample_fused`` against ``bilinear_sample_reference`` at
-     config 3's four scale shapes (B=16, 192x256 down to 24x32, C=3) with the coords of a
-     real Euler warp, a 16x24 image at 24x16 coords, taps past every border, NaN and
-     infinite coords, and B=10 (outside JAX's rule: the sampler kernel launches instead):
-     out and wmask bit-equal (their largest difference printed and reported), dcoords
-     and dimgs within bilinear_sample's limit of autograd of the plain version, the same
-     bits twice;
+ 18. kernel vs plain: ``bilinear_sample_fused_group`` on a config-3 step's 4 warps (B=16,
+     192x256 down to 24x32, C=3, the coords of a real Euler warp; dcoords and dimgs): one
+     launch each way; then ``bilinear_sample_fused`` (a group of one) on each of those,
+     a 16x24 image at 24x16 coords, taps past every border, NaN and infinite coords, and
+     B=10 (outside JAX's rule: the launches go to the sampler's own route): out and wmask
+     bit-equal (their largest difference printed and reported), dcoords and dimgs within
+     bilinear_sample's limit of autograd of the plain version, the same bits twice;
  19. training, a main path: config 3 (``train/experiments/depth_then_cam.py``, the
      full-resolution DepthPoseNet, bf16, batch 16, 192x256) for 5 steps through the CLI's
-     ``train``, the launch counts read before each batch is taken (each step 4 forward and
-     4 backward fused sampler launches, one forward and one backward smoothness launch for
-     the 4 scales, no sampler kernel launch and no plain sampling); every loss component finite; the checkpoint read back;
+     ``train``, the launch counts read before each batch is taken (each step one forward
+     and one backward fused sampler launch for the 4 scales' warps, one forward and one
+     backward smoothness launch for the 4 scales, no launch on the sampler's own route and
+     no plain sampling); every loss component finite; the checkpoint read back;
  20. evaluation, two main paths: the eval harness's ``--net pair`` (config 3's checkpoint
      as the pair net) and ``--net single`` through its functions on 2 batches of 16 at
      192x256, the sig launches counted (one a batch for either net);
@@ -107,18 +116,19 @@ Phases, each raising on failure:
      ``infer/cli.py --mode pair`` serves), each against the f32 module forward at phase
      5's limits; frames/s;
  22. step parity and times: one f32 config-3 step with the kernels against one with the
-     plain sampler and smoothness term, and the bf16 loss against the f32 one; the fused
-     kernels, the sampler kernel, the plain version, ``grid_sample`` and the bound over a
-     config-3 step's 4 calls, forward and forward + backward; ms/step of the bf16 step with
-     the fused and with the plain sampler, in turns of 5 steps; launches a step from
-     ``train/profile_step.py``.
+     plain sampler and smoothness term, and the bf16 loss against the f32 one; a config-3
+     step's 4 warps three ways (one group call, the same kernels once a warp, the plain
+     version) and ``grid_sample`` beside the bound, forward and forward + backward, each
+     twice in turns (``tools/sampler_units.py``); ms/step of the bf16 step with the fused
+     and with the plain sampler, in turns of 5 steps; launches and the sampler kernels'
+     device time a step from ``train/profile_step.py``.
  23. kernel vs plain: ``cuobjdump -sass`` on the built ``dot_loop``, ``dot_grid``,
-     ``fused_tail``, ``smoothness`` and ``sig_l2`` libraries, with each kernel's HGMMA,
-     IGMMA, UTMALDG, UTMASTG, HMMA and IMMA counts and its registers and spills (raising
-     unless the probes' bf16 products run on HGMMA and the int8 ones on IGMMA, each loading
-     through UTMALDG, with no HMMA or IMMA left, and unless the tail's bf16 kernel holds
-     HGMMA and UTMALDG and no HMMA; its f32 kernel and the loss kernels are listed, not
-     held); then
+     ``fused_tail``, ``smoothness``, ``sig_l2`` and ``bilinear_sample`` libraries, with
+     each kernel's HGMMA, IGMMA, UTMALDG, UTMASTG, HMMA and IMMA counts and its registers
+     and spills (raising unless the probes' bf16 products run on HGMMA and the int8 ones on
+     IGMMA, each loading through UTMALDG, with no HMMA or IMMA left, and unless the tail's
+     bf16 kernel holds HGMMA and UTMALDG and no HMMA; its f32 kernel and the loss and
+     sampler kernels are listed, not held); then
      ``dot_loop`` (1024^3, R = 64) and ``dot_grid`` (4096^3) against their plain versions
      on the probes' operands, int8 and bf16: int8 bit-equal, bf16 within
      ``bf16_rtol(K)`` of max |plain|, the probes' float32 sums likewise, one product
@@ -165,7 +175,6 @@ import time
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from tf_depth_estimation_torch.data.colon import PairDepthDataset
 from tf_depth_estimation_torch.data.pipeline import BatchLoader, to_device
@@ -195,9 +204,14 @@ from tf_depth_estimation_torch.models.turbo import TurboDepthNet, TurboVariant
 from tf_depth_estimation_torch.ops import _build
 from tf_depth_estimation_torch.ops.bilinear_sample import (
     bilinear_sample,
+    bilinear_sample_group,
     bilinear_sample_reference,
+    plain_group,
 )
-from tf_depth_estimation_torch.ops.bilinear_sample_fused import bilinear_sample_fused
+from tf_depth_estimation_torch.ops.bilinear_sample_fused import (
+    bilinear_sample_fused,
+    bilinear_sample_fused_group,
+)
 from tf_depth_estimation_torch.ops.dot_grid import TILE as DOT_GRID_TILE
 from tf_depth_estimation_torch.ops.dot_grid import dot_grid, dot_grid_reference
 from tf_depth_estimation_torch.ops.dot_loop import TILE as DOT_LOOP_TILE
@@ -222,7 +236,7 @@ from tf_depth_estimation_torch.ops.smoothness import (
     smoothness_fused_group,
     smoothness_plain_group,
 )
-from tf_depth_estimation_torch.tools import probe_int8_dot, probe_int8_dot2
+from tf_depth_estimation_torch.tools import probe_int8_dot, probe_int8_dot2, sampler_units
 from tf_depth_estimation_torch.tools.common import inputs as probe_inputs
 from tf_depth_estimation_torch.tools.common import library_product, time_2arg
 from tf_depth_estimation_torch.train import profile_step
@@ -269,16 +283,14 @@ TOL_SERVING = (2.5e-2, 5e-3)
 # config 4, the training path (train/experiments/optflow_combine.py defaults): 240x720
 # JPEG pairs read and resized to 224x480, batch 10, bf16
 C4_HEIGHT, C4_WIDTH, C4_READ, C4_BATCH, C4_STEPS = 224, 480, (240, 720), 10, 5
-LAUNCHES_PER_STEP = 12   # 3 warps (GT depth, predicted depth, flow) at each of 4 scales
-# bilinear_sample vs its plain version, (max, mean) abs error: out on pixels in [0, 255],
-# wmask in [0, 1]. The kernel rounds every product and sum on its own in the reference's
-# order (__fmul_rn / __fadd_rn), as PyTorch's elementwise ops do, so it is expected to be
-# exact; a sum contracted into FMAs would differ by up to ~2 ulp of 255 (3.05e-5) and of
-# 1 (2.4e-7), which the limits allow, while a wrong tap or weight moves values by whole
-# pixel differences.
-TOL_SAMPLE = {"out": (3.1e-5, 1e-6), "wmask": (2.4e-7, 1e-8)}
-# dcoords through the autograd function (corners from the kernel) vs autograd of the
-# plain version: the same terms summed in another order, |dcoords| up to ~2e3 here
+# sampler launches (forward, backward) a config-4 step: one group call for its 12 warps (3
+# warps, GT depth, predicted depth and flow, at each of 4 scales; the backward for the 8
+# with dcoords)
+SAMPLER_PER_STEP = (1, 1)
+# the sampler kernels vs the plain version: the kernels round every product and sum on
+# their own in the reference's order (__fmul_rn / __fadd_rn), as PyTorch's elementwise ops
+# do, so out and wmask are bit-equal. dcoords and dimgs vs autograd of the plain version:
+# the same terms summed in another order (dimgs by atomics), |dcoords| up to ~2e3 here
 TOL_DCOORDS = dict(rtol=1e-5, atol=1e-5 * 255)
 # one float32 step, kernel vs plain sampler, from one init and batch: the loss components
 # come from identical forwards up to cuDNN's sum order (rtol 1e-5); after Adam's first
@@ -323,11 +335,11 @@ PARITY_STEP = 1000
 # config 3, the sixth path (train/experiments/depth_then_cam.py defaults): the
 # full-resolution DepthPoseNet on DeMoN scenes at 192x256, batch 16, bf16; 5 steps
 C3_HEIGHT, C3_WIDTH, C3_BATCH, C3_STEPS = 192, 256, 16, 5
-# launches a config-3 step: one Euler warp per scale through the fused sampler, and one
-# smoothness group call for the terms of 1/disp at the 4 scales; none of the sampler
-# kernel, no plain sampling
-C3_PER_STEP = {"fused_fwd": 4, "fused_bwd": 4, "smoothness_fwd": 1, "smoothness_bwd": 1,
-               "bilinear_sample": 0, "plain_samples": 0}
+# launches a config-3 step: one fused sampler group call for the Euler warps of the 4
+# scales, and one smoothness group call for the terms of 1/disp at the 4 scales; none on
+# the sampler's own route, no plain sampling
+C3_PER_STEP = {"fused_fwd": 1, "fused_bwd": 1, "smoothness_fwd": 1, "smoothness_bwd": 1,
+               "bilinear_sample": 0, "bilinear_sample_bwd": 0, "plain_samples": 0}
 # the eval harness at config 3's size: batches, and sig forward launches a batch (one
 # group call: the 5-delta term at scale 0 for the pair net, delta 2 at 4 scales for the
 # single net)
@@ -563,17 +575,6 @@ def phase_times(folded_by_dtype: dict, smi: str) -> dict:
               f" {batch / ms * 1e3:.1f} frames/s [{smi}]")
     return rows
 
-def sample_bound(B: int, Hs: int, Ws: int, Ht: int, Wt: int, C: int,
-                 corners: bool = False) -> tuple:
-    """Least time (ms) an H100 SXM needs for one sampler call: imgs and coords read once,
-    out and wmask (and the corner planes, when the backward needs them) written once;
-    about 19 + 7 C float32 operations per output pixel."""
-    n = B * Ht * Wt
-    nbytes = 4 * (B * Hs * Ws * C + 2 * n + C * n + n + (4 * C * n if corners else 0))
-    t_bytes, t_ops = nbytes / PEAK_HBM, n * (19 + 7 * C) / PEAK_F32
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
 def warp_coords(B: int, H: int, W: int, device, seed: int = SEED + 2) -> torch.Tensor:
     """The coords of a real depth warp: seeded depth in [0.8, 2.5], a translation of up to
     5 cm and a rotation of up to 0.02 rad about the optical axis, config 4's intrinsics."""
@@ -606,28 +607,91 @@ def sampler_cases(device) -> dict:
     }
 
 
+SAMPLER_COUNTS = ("bilinear_sample", "bilinear_sample_bwd", "fused_fwd", "fused_bwd")
+
+
+def _distinct_leaves(tensors: list, grad: bool) -> tuple:
+    """(a copy of each distinct tensor of ``tensors`` (by address) as a leaf, the copy in
+    each place): warps of one image keep sharing it."""
+    leaves, placed = {}, []
+    for t in tensors:
+        if t.data_ptr() not in leaves:
+            leaves[t.data_ptr()] = t.detach().clone().requires_grad_(grad)
+        placed.append(leaves[t.data_ptr()])
+    return list(leaves.values()), placed
+
+
+def group_check(label: str, group, warps: list, want: tuple, smi: str,
+                dimgs: bool = False) -> dict:
+    """Hold ``group`` on ``warps`` [(imgs, coords, needs dcoords)] to the plain version
+    (``plain_group``) at seeded cotangents of the outputs: the launches of each group call
+    (``SAMPLER_COUNTS``) equal to ``want``, out and wmask bit-equal, dcoords (and, with
+    ``dimgs``, the images' gradients) within TOL_DCOORDS of autograd of the plain version,
+    dcoords the same bits in two runs. Returns the largest differences."""
+    g = np.random.RandomState(SEED + 6)
+    douts = [torch.from_numpy(g.randn(*c.shape[:3], i.shape[3]).astype(np.float32))
+             .to(i.device) for i, c, _ in warps]
+    ks = [k for k, w in enumerate(warps) if w[2] or dimgs]
+    runs = []
+    for fn in (group, group, plain_group):
+        img_leaves, ims = _distinct_leaves([w[0] for w in warps], dimgs)
+        cs = [c.detach().clone().requires_grad_(need) for _, c, need in warps]
+        targets = [c for c in cs if c.requires_grad] + (img_leaves if dimgs else [])
+        before = read_counts()
+        outs, masks = fn(ims, cs)
+        grads = torch.autograd.grad([outs[k] for k in ks], targets, [douts[k] for k in ks])
+        after = read_counts()
+        got = tuple(after[k] - before[k] for k in SAMPLER_COUNTS)
+        if fn is group and got != want:
+            raise AssertionError(f"{label}: launches {dict(zip(SAMPLER_COUNTS, got))}, not "
+                                 f"{dict(zip(SAMPLER_COUNTS, want))}")
+        runs.append(([o.detach() for o in outs], [m.detach() for m in masks], grads))
+    (o1, m1, g1), (_, _, g2), (ro, rm, rg) = runs
+    n_c = sum(w[2] for w in warps)
+    if not all(_same_bits(a, b) for a, b in zip(g1[:n_c], g2[:n_c])):
+        raise AssertionError(f"{label}: dcoords differ between two runs")
+    errs = {"out": max((a - b).abs().nan_to_num().max().item() for a, b in zip(o1, ro)),
+            "wmask": max((a - b).abs().nan_to_num().max().item() for a, b in zip(m1, rm))}
+    if not all(_same_bits(a, b) for a, b in zip(o1 + m1, ro + rm)):
+        raise AssertionError(f"{label}: forward differs from the plain version by {errs}")
+    for what, got, ref in (("dcoords", g1[:n_c], rg[:n_c]), ("dimgs", g1[n_c:], rg[n_c:])):
+        for a, r in zip(got, ref):
+            torch.testing.assert_close(a, r, equal_nan=True, **TOL_DCOORDS,
+                                       msg=lambda m: f"{label} {what}: {m}")
+        errs[what] = max([(a - r).abs().nan_to_num().max().item()
+                          for a, r in zip(got, ref)] or [0.0])
+    px = sum(c.shape[0] * c.shape[1] * c.shape[2] for _, c, _ in warps)
+    print(f"kernel {label}: {len(warps)} warps ({px} target pixels, {n_c} with dcoords"
+          f"{', dimgs' if dimgs else ''}): launches {dict(zip(SAMPLER_COUNTS, want))}; out "
+          f"and wmask bit-equal to the plain version; dcoords abs err max "
+          f"{errs['dcoords']:.3e}" + (f", dimgs {errs['dimgs']:.3e}" if dimgs else "")
+          + f" vs autograd of the plain version (rtol {TOL_DCOORDS['rtol']:.0e}, atol "
+          f"{TOL_DCOORDS['atol']:.2e}); dcoords bit-equal in two runs [{smi}]")
+    return errs
+
+
 def phase_sampler(device, smi: str) -> dict:
-    """bilinear_sample vs bilinear_sample_reference: forward everywhere, dcoords on the
-    real warp and on integer coords."""
-    worst = {"out": 0.0, "wmask": 0.0, "dcoords": 0.0}
+    """The sampler group on a config-4 step's 12 warps (``group_check``, without and with
+    dimgs), then ``bilinear_sample`` on single calls: the forward bit-equal everywhere,
+    dcoords on the real warp (with dimgs) and on integer coords."""
+    warps = sampler_units.units(device)["config 4"]
+    worst = {"out": 0.0, "wmask": 0.0, "dcoords": 0.0, "dimgs": 0.0}
+    for dimgs in (False, True):
+        errs = group_check("bilinear_sample_group, a config-4 step", bilinear_sample_group,
+                           warps, (1, 1, 0, 0), smi, dimgs=dimgs)
+        worst = {k: max(v, errs[k]) for k, v in worst.items()}
     for name, (imgs, coords) in sampler_cases(device).items():
         got = bilinear_sample(imgs, coords)
         ref = bilinear_sample_reference(imgs, coords)
         torch.cuda.synchronize()
         for what, g, r in zip(("out", "wmask"), got, ref):
-            if g.shape != r.shape or not bool(torch.isfinite(g).all()):
-                raise AssertionError(f"bilinear_sample {name} {what}: shape "
-                                     f"{tuple(g.shape)} vs {tuple(r.shape)} or non-finite")
-            err, mean = (g - r).abs().max().item(), (g - r).abs().mean().item()
-            tol_max, tol_mean = TOL_SAMPLE[what]
+            err = (g - r).abs().max().item()
             print(f"kernel bilinear_sample {name} {tuple(imgs.shape)} at "
-                  f"{tuple(coords.shape)}: {what} abs err max {err:.3e}, mean {mean:.3e} "
-                  f"vs bilinear_sample_reference, tolerance max {tol_max:.1e}, mean "
-                  f"{tol_mean:.0e} [{smi}]")
-            if err > tol_max or mean > tol_mean:
-                raise AssertionError(f"bilinear_sample {name} {what}: abs err max {err}, "
-                                     f"mean {mean} beyond {tol_max}, {tol_mean}")
-            worst[what] = max(worst[what], err)
+                  f"{tuple(coords.shape)}: {what} abs err {err:.1e} vs "
+                  f"bilinear_sample_reference, bit-equal required [{smi}]")
+            if not _same_bits(g, r):
+                raise AssertionError(f"bilinear_sample {name} {what}: differs from the plain "
+                                     f"version by {err}")
         if name not in ("warp", "integer"):
             continue
         g = np.random.RandomState(SEED + 4)
@@ -637,16 +701,22 @@ def phase_sampler(device, smi: str) -> dict:
         grads = []
         for fn in (bilinear_sample, bilinear_sample_reference):
             c = coords.clone().requires_grad_(True)
-            out, mask = fn(imgs, c)
+            i = imgs.clone().requires_grad_(name == "warp")
+            out, mask = fn(i, c)
             torch.autograd.backward([out, mask], [dout, dmask])
-            grads.append(c.grad)
-        err = (grads[0] - grads[1]).abs().max().item()
-        print(f"kernel bilinear_sample {name}: dcoords abs err max {err:.3e} vs autograd "
-              f"of the plain version (|dcoords| max {grads[1].abs().max().item():.1f}), "
-              f"tolerance rtol {TOL_DCOORDS['rtol']:.0e}, atol {TOL_DCOORDS['atol']:.2e} "
-              f"[{smi}]")
-        torch.testing.assert_close(grads[0], grads[1], **TOL_DCOORDS)
+            grads.append((c.grad, i.grad))
+        err = (grads[0][0] - grads[1][0]).abs().max().item()
+        msg = f"dcoords abs err max {err:.3e}"
+        torch.testing.assert_close(grads[0][0], grads[1][0], **TOL_DCOORDS)
         worst["dcoords"] = max(worst["dcoords"], err)
+        if name == "warp":
+            err = (grads[0][1] - grads[1][1]).abs().max().item()
+            msg += f", dimgs {err:.3e}"
+            torch.testing.assert_close(grads[0][1], grads[1][1], **TOL_DCOORDS)
+            worst["dimgs"] = max(worst["dimgs"], err)
+        print(f"kernel bilinear_sample {name}: {msg} vs autograd of the plain version "
+              f"(|dcoords| max {grads[1][0].abs().max().item():.1f}), tolerance rtol "
+              f"{TOL_DCOORDS['rtol']:.0e}, atol {TOL_DCOORDS['atol']:.2e} [{smi}]")
     return worst
 
 
@@ -739,52 +809,21 @@ def phase_step_parity(device, batch: dict, smi: str) -> dict:
     return _compare_steps("config 4", runs, 2e-4, smi)
 
 
-def step_calls(device) -> list:
-    """The 12 sampler calls of a config-4 step: (imgs, coords, needs dcoords) per warp."""
-    g = np.random.RandomState(SEED + 5)
-    calls = []
-    for s in range(4):
-        h, w = C4_HEIGHT >> s, C4_WIDTH >> s
-        imgs = torch.from_numpy((g.rand(C4_BATCH, h, w, 3) * 255).astype(np.float32))
-        coords = warp_coords(C4_BATCH, h, w, device, seed=SEED + 10 + s)
-        imgs = imgs.to(device)
-        # GT-depth warp (no gradient), predicted-depth warp and flow warp (dcoords)
-        calls += [(imgs, coords, False), (imgs, coords.clone().requires_grad_(True), True),
-                  (imgs, coords.clone().requires_grad_(True), True)]
-    return calls
-
-
 def phase_sampler_times(device, smi: str) -> dict:
-    imgs, coords = sampler_cases(device)["warp"]
-    B, H, W, C = imgs.shape
-    grid = torch.stack([coords[..., 0] * (2.0 / (W - 1)) - 1,
-                        coords[..., 1] * (2.0 / (H - 1)) - 1], -1)
-    imgs_nchw = imgs.permute(0, 3, 1, 2)
-    ms = time_ms(lambda: bilinear_sample(imgs, coords), 50)
-    plain = time_ms(lambda: bilinear_sample_reference(imgs, coords), 20)
-    lib = time_ms(lambda: F.grid_sample(imgs_nchw, grid, mode="bilinear",
-                                        padding_mode="zeros", align_corners=True), 50)
-    bound, by = sample_bound(B, H, W, H, W, C)
-    print(f"time bilinear_sample scale 0 B={B} {H}x{W}x{C}: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, grid_sample {lib:.4f} ms, bound {bound:.4f} ms ({by}), "
-          f"kernel/bound {ms / bound:.1f}x [{smi}]")
-    calls = step_calls(device)
-    ms12 = time_ms(lambda: [bilinear_sample(i, c) for i, c, _ in calls], 20)
-    plain12 = time_ms(lambda: [bilinear_sample_reference(i, c) for i, c, _ in calls], 10)
-    libs = [(i.permute(0, 3, 1, 2), torch.stack(
-        [c[..., 0] * (2.0 / (i.shape[2] - 1)) - 1, c[..., 1] * (2.0 / (i.shape[1] - 1)) - 1],
-        -1).detach()) for i, c, _ in calls]
-    lib12 = time_ms(lambda: [F.grid_sample(i, g, mode="bilinear", padding_mode="zeros",
-                                           align_corners=True) for i, g in libs], 20)
-    bound12 = sum(sample_bound(i.shape[0], *i.shape[1:3], *c.shape[1:3], i.shape[3], g)[0]
-                  for i, c, g in calls)
-    print(f"time bilinear_sample, the 12 calls of a config-4 step (B={B}, scales "
-          f"{C4_HEIGHT}x{C4_WIDTH}..{C4_HEIGHT >> 3}x{C4_WIDTH >> 3}, 8 with corner planes):"
-          f" kernel {ms12:.4f} ms, plain {plain12:.4f} ms, grid_sample {lib12:.4f} ms, "
-          f"bound {bound12:.4f} ms [{smi}]")
-    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
-            "bound_by": by, "ms12": ms12, "plain12": plain12, "lib12": lib12,
-            "bound12": bound12}
+    """A config-4 step's 12 warps three ways (one group call, the same kernels once a warp,
+    the plain version) and ``grid_sample``, forward and forward + backward, twice in turns,
+    beside the bound (``tools/sampler_units.py``); then one profiled config-4 step
+    (``profile_step``): the sampler kernels' device time a step, and the profile itself
+    (``"profile"``) for the phases after."""
+    warps = sampler_units.units(device)["config 4"]
+    row = sampler_units.time_unit(warps, sampler_units.ways("config 4"))
+    sampler_units.report("config 4", warps, row, "bilinear_sample", smi)
+    prof = profile_step.profile(steps=1, device=device, config="optflow_combine", top=0)
+    row.update(device_ms=prof["kinds"].get("sampler kernels", 0.0), profile=prof)
+    print(f"profile optflow_combine: sampler kernels {row['device_ms']:.4f} ms of device "
+          f"time a step, of {prof['kernel_ms']:.2f} ms in {prof['launches']} launches "
+          f"[{smi}]")
+    return row
 
 
 def phase_training_times(device, batch: dict, smi: str) -> dict:
@@ -1035,11 +1074,11 @@ def _turns(r: dict) -> str:
                      for k, v in r.items() if k.endswith("_fwdbwd_turns"))
 
 
-def phase_smooth_times(device, smi: str) -> dict:
+def phase_smooth_times(device, smi: str, prof: dict) -> dict:
     """The kernels against the plain term, forward and forward + backward, three ways
     (``_time_smooth``), beside the bound: config 2's scale-0 map alone, and the groups of
-    a config-2 and a config-4 step; then the smoothness kernels' device time in a config-4
-    step (``profile_step``)."""
+    a config-2 and a config-4 step; then the smoothness kernels' device time in the
+    profiled config-4 step ``prof`` (``profile_step``)."""
     x = step_smooth_group("depth_only", device)[1][0]
     px = x.shape[0] * x.shape[1] * x.shape[2]
     row = _time_smooth([x], [1.0])
@@ -1063,7 +1102,6 @@ def phase_smooth_times(device, smi: str) -> dict:
               f"group {r['group_fwdbwd']:.4f} ms, per-map loop {r['loop_fwdbwd']:.4f} ms, "
               f"plain {r['plain_fwdbwd']:.4f} ms, bound {bf + bb:.4f} ms; turns "
               f"{_turns(r)} [{smi}]")
-    prof = profile_step.profile(steps=1, device=device, config="optflow_combine", top=0)
     rows["optflow_combine"]["device_ms"] = prof["kinds"].get("smoothness kernels", 0.0)
     print(f"profile optflow_combine: smoothness kernels {rows['optflow_combine']['device_ms']:.4f}"
           f" ms of device time a step, of {prof['kernel_ms']:.2f} ms in "
@@ -1500,11 +1538,19 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def phase_fused_sampler(device, smi: str) -> dict:
-    """bilinear_sample_fused vs the plain version on the card: the forward (out and wmask
-    bit-equal), the launches (the fused kernels, or the sampler kernel outside the rule),
-    dcoords and dimgs against autograd of the plain version, and the same bits twice."""
+    """The fused sampler group on a config-3 step's 4 warps (``group_check``, without and
+    with dimgs); then bilinear_sample_fused vs the plain version on single calls: the
+    forward (out and wmask bit-equal), the launches (on the fused route, or on the
+    sampler's own outside the rule), dcoords and dimgs against autograd of the plain
+    version, and the same bits twice."""
     worst = {"out": 0.0, "wmask": 0.0, "dcoords": 0.0, "dimgs": 0.0}
-    for name, (imgs, coords, eligible) in fused_cases(device).items():
+    cases = fused_cases(device)
+    warps = [(*cases[f"config3 s{s}"][:2], True) for s in range(4)]
+    for dimgs in (False, True):
+        errs = group_check("bilinear_sample_fused_group, a config-3 step",
+                           bilinear_sample_fused_group, warps, (0, 0, 1, 1), smi, dimgs=dimgs)
+        worst = {k: max(v, errs[k]) for k, v in worst.items()}
+    for name, (imgs, coords, eligible) in cases.items():
         g = np.random.RandomState(SEED + 26)
         dout = torch.from_numpy(g.randn(*coords.shape[:3], 3).astype(np.float32)).to(device)
         dmask = torch.from_numpy(g.randn(*coords.shape[:3], 1).astype(np.float32)).to(device)
@@ -1516,12 +1562,10 @@ def phase_fused_sampler(device, smi: str) -> dict:
             torch.autograd.backward([out, mask], [dout, dmask])
             after = read_counts()
             if fn is bilinear_sample_fused:
-                got = (after["fused_fwd"] - before["fused_fwd"],
-                       after["fused_bwd"] - before["fused_bwd"],
-                       after["bilinear_sample"] - before["bilinear_sample"])
-                if got != ((1, 1, 0) if eligible else (0, 0, 1)):
-                    raise AssertionError(f"fused sampler {name}: launches (fused forward, "
-                                         f"fused backward, sampler kernel) {got}")
+                got = tuple(after[k] - before[k] for k in SAMPLER_COUNTS)
+                if got != ((0, 0, 1, 1) if eligible else (1, 1, 0, 0)):
+                    raise AssertionError(f"fused sampler {name}: launches "
+                                         f"{dict(zip(SAMPLER_COUNTS, got))}")
             runs.append((out.detach(), mask.detach(), tc.grad, ti.grad))
         (o1, m1, dc1, di1), (o2, m2, dc2, _), (ro, rm, rdc, rdi) = runs
         if not (_same_bits(o1, o2) and _same_bits(m1, m2) and _same_bits(dc1, dc2)):
@@ -1539,7 +1583,7 @@ def phase_fused_sampler(device, smi: str) -> dict:
             err = (a - r).abs().nan_to_num().max().item()
             worst[what] = max(worst[what], err)
         print(f"kernel bilinear_sample_fused {name} {tuple(imgs.shape)} at "
-              f"{tuple(coords.shape)}: {'fused kernels' if eligible else 'sampler kernel'}; "
+              f"{tuple(coords.shape)}: {'fused route' if eligible else 'sampler route'}; "
               f"out and wmask bit-equal to the plain version (abs err {fwd_errs['out']:.1e}, "
               f"{fwd_errs['wmask']:.1e}); dcoords abs err max "
               f"{(dc1 - rdc).abs().nan_to_num().max().item():.3e}, dimgs "
@@ -1744,66 +1788,13 @@ def phase_pair_serving(device, variables: dict, *, height: int = C3_HEIGHT,
     return {"depth_max": float(errs["depth"].max()), "frames_per_s": fps}
 
 
-def fused_bound(calls: list, backward: bool) -> tuple:
-    """Least time (ms) an H100 SXM needs for fused sampler calls ``[(imgs, coords), ...]``:
-    forward, imgs and coords read once and out and wmask written once, ~(19 + 7 C)
-    float32 operations a target pixel (the prologue, the weights, C four-tap sums);
-    backward of dcoords, imgs, coords and dout read and dcoords written, ~(39 + 8 C)
-    operations a pixel (the prologue, C four-tap products and sums, the weight
-    gradients)."""
-    nbytes = ops = 0
-    for imgs, coords in calls:
-        B, Hs, Ws, C = imgs.shape
-        n = coords.shape[0] * coords.shape[1] * coords.shape[2]
-        if backward:
-            nbytes += 4 * (B * Hs * Ws * C + 2 * n + C * n + 2 * n)
-            ops += (39 + 8 * C) * n
-        else:
-            nbytes += 4 * (B * Hs * Ws * C + 2 * n + C * n + n)
-            ops += (19 + 7 * C) * n
-    t_bytes, t_ops = nbytes / PEAK_HBM, ops / PEAK_F32
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
 def phase_fused_times(device, smi: str) -> dict:
-    """The fused kernels over a config-3 step's 4 calls (B=16, 192x256 down to 24x32,
-    Euler-warp coords), forward and forward + backward (dcoords, as the step needs it),
-    against the sampler kernel on the same calls, the plain version, ``grid_sample`` (the
-    closest library call: normalised coordinates, no wmask) and the bound."""
-    cases = fused_cases(device)
-    calls = [cases[f"config3 s{s}"][:2] for s in range(4)]
-    leaves = [c.clone().requires_grad_(True) for _, c in calls]
-    g = np.random.RandomState(SEED + 27)
-    douts = [torch.from_numpy(g.randn(*c.shape[:3], 3).astype(np.float32)).to(device)
-             for _, c in calls]
-    norm = lambda i, c: torch.stack([c[..., 0] * (2.0 / (i.shape[2] - 1)) - 1,
-                                     c[..., 1] * (2.0 / (i.shape[1] - 1)) - 1], -1)
-    grid_sample = lambda i, c: F.grid_sample(i.permute(0, 3, 1, 2), norm(i, c), mode="bilinear",
-                                             padding_mode="zeros", align_corners=True)
-    row = {}
-    for name, fn in (("fused", lambda i, c: bilinear_sample_fused(i, c)[0]),
-                     ("kernel4", lambda i, c: bilinear_sample(i, c)[0]),
-                     ("plain", lambda i, c: bilinear_sample_reference(i, c)[0]),
-                     ("grid_sample", grid_sample)):
-        iters = 10 if name == "plain" else 50
-        with torch.no_grad():
-            row[f"{name}_fwd"] = time_ms(lambda: [fn(i, c) for i, c in calls], iters)
-        outs_of = lambda: [fn(i, c) for (i, _), c in zip(calls, leaves)]
-        # grid_sample's output is NCHW: its cotangent the same numbers in its layout
-        cot = douts if name != "grid_sample" else [d.permute(0, 3, 1, 2) for d in douts]
-        row[f"{name}_fwdbwd"] = time_ms(
-            lambda: torch.autograd.grad(outs_of(), leaves, cot), iters)
-    bf, by = fused_bound(calls, False)
-    bb, by_b = fused_bound(calls, True)
-    row.update(bound_fwd=bf, bound_bwd=bb, bound_by=by_b if bb >= bf else by)
-    px = sum(c.shape[0] * c.shape[1] * c.shape[2] for _, c in calls)
-    for what, bound in (("fwd", bf), ("fwdbwd", bf + bb)):
-        print(f"time bilinear_sample_fused, the 4 calls of a config-3 step ({px} target "
-              f"pixels), {'forward' if what == 'fwd' else 'forward+backward'}: fused "
-              f"{row[f'fused_{what}']:.4f} ms, sampler kernel {row[f'kernel4_{what}']:.4f} "
-              f"ms, plain {row[f'plain_{what}']:.4f} ms, grid_sample "
-              f"{row[f'grid_sample_{what}']:.4f} ms, bound {bound:.4f} ms ({row['bound_by']})"
-              f", fused/bound {row[f'fused_{what}'] / bound:.1f}x [{smi}]")
+    """A config-3 step's 4 warps three ways (one fused group call, the same kernels once a
+    warp, the plain version) and ``grid_sample``, forward and forward + backward (dcoords,
+    as the step needs it), twice in turns, beside the bound (``tools/sampler_units.py``)."""
+    warps = sampler_units.units(device)["config 3"]
+    row = sampler_units.time_unit(warps, sampler_units.ways("config 3"))
+    sampler_units.report("config 3", warps, row, "bilinear_sample_fused", smi)
     return row
 
 
@@ -1829,7 +1820,8 @@ def phase_depth_then_cam_times(device, smi: str) -> dict:
     for name in ("kernel", "plain"):
         prof = profile_step.profile(steps=1, device=device, config="depth_then_cam",
                                     sampler=name, top=0)
-        out[name].update(launches=prof["launches"], kernel_ms=prof["kernel_ms"])
+        out[name].update(launches=prof["launches"], kernel_ms=prof["kernel_ms"],
+                         sampler_ms=prof["kinds"].get("sampler kernels", 0.0))
     return out
 
 
@@ -1861,9 +1853,10 @@ def probe_cases(device, shapes: dict = None) -> dict:
 
 
 def _kernel_label(mangled: str) -> str:
-    """A readable name for a kernel of the probe, tail or loss libraries: dot_kernel's
-    element type (int8 reads B^T, bf16 B), tile width and loop or grid; the transpose and
-    reduce kernels; the loss kernels; the tail's bf16 (tensor-core) and f32 kernels."""
+    """A readable name for a kernel of the probe, tail, loss or sampler libraries:
+    dot_kernel's element type (int8 reads B^T, bf16 B), tile width and loop or grid; the
+    transpose and reduce kernels; the loss and sampler kernels; the tail's bf16
+    (tensor-core) and f32 kernels."""
     m = re.search(r"dot_kernelI(13__nv_bfloat16|a)Li(\d+)ELb([01])E", mangled)
     if m:
         return (f"dot_kernel<{'bf16' if m.group(1) != 'a' else 'int8'}, BN={m.group(2)}, "
@@ -1871,7 +1864,7 @@ def _kernel_label(mangled: str) -> str:
     for kind in ("transpose_kernel", "reduce_kernel"):
         if kind in mangled:
             return f"{kind}<{mangled.split(kind + 'I', 1)[1][:1]}>"
-    m = re.search(r"(smooth|sig)_group_(forward|backward)", mangled)
+    m = re.search(r"(smooth|sig|bilinear)_group_(forward|backward)", mangled)
     if m:
         return m.group(0)
     if "tail_bf16_kernel" in mangled:
@@ -1921,12 +1914,12 @@ def hold_tail_sass(counts: dict) -> None:
 
 
 def phase_sass() -> dict:
-    """``sass_counts`` of the ``dot_grid``, ``dot_loop``, ``fused_tail``, ``smoothness``
-    and ``sig_l2`` libraries. Raises unless each probe library's bf16 products run on
-    HGMMA and its int8 products on IGMMA, each product kernel loads through UTMALDG, and
-    neither probe library holds an HMMA or IMMA (wmma's mma.sync); and unless
-    ``hold_tail_sass`` passes. The loss kernels are listed with their registers and
-    spills, not held. Returns (library, label) -> counts."""
+    """``sass_counts`` of the ``dot_grid``, ``dot_loop``, ``fused_tail``, ``smoothness``,
+    ``sig_l2`` and ``bilinear_sample`` libraries. Raises unless each probe library's bf16
+    products run on HGMMA and its int8 products on IGMMA, each product kernel loads through
+    UTMALDG, and neither probe library holds an HMMA or IMMA (wmma's mma.sync); and unless
+    ``hold_tail_sass`` passes. The loss and sampler kernels are listed with their
+    registers and spills, not held. Returns (library, label) -> counts."""
     out = {}
     for name in ("dot_grid", "dot_loop"):
         kinds = set()
@@ -1945,7 +1938,7 @@ def phase_sass() -> dict:
     tail = sass_counts("fused_tail")
     hold_tail_sass(tail)
     out.update({("fused_tail", label): counts for label, counts in tail.items()})
-    for name in ("smoothness", "sig_l2"):
+    for name in ("smoothness", "sig_l2", "bilinear_sample"):
         out.update({(name, label): counts for label, counts in sass_counts(name).items()})
     return out
 
@@ -2203,7 +2196,7 @@ def phase_turbo_serving(device, smi: str = "", height: int = HEIGHT, width: int 
 
 
 def reset_counts() -> None:
-    fused_tail.launches = bilinear_sample.launches = 0
+    fused_tail.launches = bilinear_sample.launches = bilinear_sample.backward_launches = 0
     smoothness_fused.launches = smoothness_fused.backward_launches = 0
     sig_l2_fused.launches = sig_l2_fused.backward_launches = 0
     bilinear_sample_fused.launches = bilinear_sample_fused.backward_launches = 0
@@ -2217,6 +2210,7 @@ def read_counts(sync: bool = True) -> dict:
     if sync and torch.cuda.is_available():
         torch.cuda.synchronize()
     return {"fused_tail": fused_tail.launches, "bilinear_sample": bilinear_sample.launches,
+            "bilinear_sample_bwd": bilinear_sample.backward_launches,
             "smoothness_fwd": smoothness_fused.launches,
             "smoothness_bwd": smoothness_fused.backward_launches,
             "sig_fwd": sig_l2_fused.launches, "sig_bwd": sig_l2_fused.backward_launches,
@@ -2271,12 +2265,13 @@ def main() -> None:
         training = read_counts()
         print(f"training launches: {training} in {C4_STEPS} steps [{info['smi']}]")
         n_fwd, n_bwd = SMOOTH_PER_STEP["optflow_combine"]
-        if training["bilinear_sample"] != LAUNCHES_PER_STEP * C4_STEPS \
-                or training["smoothness_fwd"] != n_fwd * C4_STEPS \
-                or training["smoothness_bwd"] != n_bwd * C4_STEPS:
+        want = {"bilinear_sample": SAMPLER_PER_STEP[0] * C4_STEPS,
+                "bilinear_sample_bwd": SAMPLER_PER_STEP[1] * C4_STEPS,
+                "fused_fwd": 0, "fused_bwd": 0, "plain_samples": 0,
+                "smoothness_fwd": n_fwd * C4_STEPS, "smoothness_bwd": n_bwd * C4_STEPS}
+        if {k: training[k] for k in want} != want:
             raise AssertionError(f"config-4 training launched {training} in {C4_STEPS} "
-                                 f"steps, not {LAUNCHES_PER_STEP} bilinear_sample and "
-                                 f"{n_fwd} + {n_bwd} smoothness a step")
+                                 f"steps, not {want}")
         batch = first_batch(dataset, "cuda")
         stamp("config-4 training")
 
@@ -2334,7 +2329,7 @@ def main() -> None:
     srow = phase_sampler_times("cuda", info["smi"])
     phase_training_times("cuda", batch, info["smi"])
     stamp("config-4 times")
-    mrow = phase_smooth_times("cuda", info["smi"])["optflow_combine"]
+    mrow = phase_smooth_times("cuda", info["smi"], srow["profile"])["optflow_combine"]
     phase_depth_only_times("cuda", info["smi"])
     stamp("smoothness and config-2 times")
     phase_split_parity("cuda", info["smi"])
@@ -2344,7 +2339,7 @@ def main() -> None:
     stamp("sig and split_training times")
     phase_depth_then_cam_parity("cuda", info["smi"])
     frow = phase_fused_times("cuda", info["smi"])
-    phase_depth_then_cam_times("cuda", info["smi"])
+    frow["device_ms"] = phase_depth_then_cam_times("cuda", info["smi"])["kernel"]["sampler_ms"]
     stamp("config-3 step parity and times")
 
     phase_sass()
@@ -2383,15 +2378,24 @@ def main() -> None:
         # the native chain of the same layers (cuDNN, several calls): a yardstick
         "native_chain_ms": main_row["native_ms"],
     }, {
+        # forward and backward of a config-4 step's 12 warps (B=10, 224x480 down to 28x60;
+        # dcoords on the 8 that need them) in one group call; launches: forward + backward
+        # in the config-4 run; forward_ms: the group's forward alone; per_call_ms: the same
+        # kernels once a warp; device_ms: the sampler kernels' device time in a config-4
+        # step (profile_step); the bound reads each of the 4 images once
         "name": "bilinear_sample", "route": "cuda",
         "source": "tf_depth_estimation_torch/csrc/bilinear_sample.cu",
         "replaces": "tf_depth_estimation_tpu/ops/pallas_sample.py:97",
-        "launches": training["bilinear_sample"], "max_abs_err": sample_errs["out"],
-        "ms": srow["ms"], "plain_ms": srow["plain_ms"], "bound_ms": srow["bound_ms"],
-        "bound_by": srow["bound_by"],
-        # grid_sample(bilinear, zeros, align_corners=True): the closest library call, not
-        # the same function (normalised coordinates, no wmask)
-        "library_ms": srow["library_ms"],
+        "launches": training["bilinear_sample"] + training["bilinear_sample_bwd"],
+        "max_abs_err": sample_errs["out"],
+        "ms": srow["group_fwdbwd"], "plain_ms": srow["plain_fwdbwd"],
+        "forward_ms": srow["group_fwd"], "per_call_ms": srow["calls_fwdbwd"],
+        "device_ms": srow["device_ms"],
+        "bound_ms": srow["bound_fwd"] + srow["bound_bwd"], "bound_by": srow["bound_by"],
+        # grid_sample(bilinear, zeros, align_corners=True), forward and backward for the
+        # grid: the closest library call, not the same function (normalised coordinates,
+        # no wmask)
+        "library_ms": srow["grid_sample_fwdbwd"],
     }, {
         # forward and backward of a config-4 step's group (12 maps, B=10, 224x480 down to
         # 28x60); launches: forward + backward in the config-4 run; per_map_loop_ms: the
@@ -2423,17 +2427,20 @@ def main() -> None:
         "bound_by": sig_row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the same function
     }, {
-        # forward and backward (dcoords) of a config-3 step's four calls (B=16, 192x256
-        # down to 24x32); launches: forward + backward in the config-3 run
+        # forward and backward (dcoords) of a config-3 step's 4 warps (B=16, 192x256 down to
+        # 24x32) in one group call, on the kernels of csrc/bilinear_sample.cu; launches:
+        # forward + backward in the config-3 run; forward_ms, per_call_ms and device_ms as
+        # for bilinear_sample (device_ms from a config-3 step)
         "name": "bilinear_sample_fused", "route": "cuda",
-        "source": "tf_depth_estimation_torch/csrc/bilinear_sample_fused.cu",
+        "source": "tf_depth_estimation_torch/csrc/bilinear_sample.cu",
         "replaces": "tf_depth_estimation_tpu/ops/pallas_warp.py:51",
         "launches": c3_counts["fused_fwd"] + c3_counts["fused_bwd"],
         "max_abs_err": fused_errs["out"],
-        "ms": frow["fused_fwdbwd"], "plain_ms": frow["plain_fwdbwd"],
+        "ms": frow["group_fwdbwd"], "plain_ms": frow["plain_fwdbwd"],
+        "forward_ms": frow["group_fwd"], "per_call_ms": frow["calls_fwdbwd"],
+        "device_ms": frow["device_ms"],
         "bound_ms": frow["bound_fwd"] + frow["bound_bwd"], "bound_by": frow["bound_by"],
-        # grid_sample(bilinear, zeros, align_corners=True), forward and backward for the
-        # grid: the closest library call, not the same function
+        # grid_sample as for bilinear_sample: the closest library call, not the same function
         "library_ms": frow["grid_sample_fwdbwd"],
     }]
     for name, replaces in (("dot_loop", "tools/probe_int8_dot.py:29"),

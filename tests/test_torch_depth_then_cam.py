@@ -675,9 +675,10 @@ def _cuda():
 
 @pytest.mark.cuda
 def test_cuda_step_launches_the_fused_sampler():
-    """One float32 config-3 step at B=8 (inside the rule): 4 + 4 fused sampler launches,
-    one forward and one backward smoothness launch for the four scales, no sampler kernel
-    launch and no plain sampling."""
+    """One float32 config-3 step at B=8 (inside the rule): one forward and one backward
+    fused sampler launch for the four scales' warps (one group call), one forward and one
+    backward smoothness launch for the four scales, no launch on the sampler's own route
+    and no plain sampling."""
     dev = _cuda()
     batch = {k: v.to(dev) for k, v in _t(_demon_batch(10, batch=8)).items()}
     state = create_train_state(DepthPoseNet(
@@ -688,7 +689,7 @@ def test_cuda_step_launches_the_fused_sampler():
     bs.bilinear_sample.launches = bs.bilinear_sample_reference.calls = 0
     _, metrics = make_depth_then_cam_step(w)(state, batch)
     torch.cuda.synchronize()
-    assert (bilinear_sample_fused.launches, bilinear_sample_fused.backward_launches) == (4, 4)
+    assert (bilinear_sample_fused.launches, bilinear_sample_fused.backward_launches) == (1, 1)
     assert (smoothness_fused.launches, smoothness_fused.backward_launches) == (1, 1)
     assert bs.bilinear_sample.launches == 0 and bs.bilinear_sample_reference.calls == 0
     assert all(bool(torch.isfinite(v)) for v in metrics.values())

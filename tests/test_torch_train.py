@@ -220,8 +220,8 @@ def test_profile_step_runs_on_cpu():
 
     out = profile_step.profile(steps=1, device="cpu", batch=2, height=32, width=64)
     assert out["wall_ms"] > 0 and out["kernel_ms"] == 0.0 and out["launches"] == 0
-    assert profile_step.kind_of("void bilinear_sample_kernel(float const*)") == \
-        "bilinear_sample kernel"
+    assert profile_step.kind_of("(anonymous namespace)::bilinear_group_backward(Group)") == \
+        "sampler kernels"
     assert profile_step.kind_of("(anonymous namespace)::smooth_backward_kernel(Plane)") == \
         "smoothness kernels"
 

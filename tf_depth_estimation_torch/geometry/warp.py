@@ -31,12 +31,11 @@ class WarpResult(NamedTuple):
     pose: torch.Tensor          # [B, 4, 4] the pose matrix
 
 
-def projective_inverse_warp(img: torch.Tensor, depth: torch.Tensor, pose: torch.Tensor,
-                            intrinsics: torch.Tensor, fmt: str = "euler",
-                            sampler: str = "xla") -> WarpResult:
-    """Inverse-warp ``img`` [B, H, W, C] (source view) into the target frame given the
-    target ``depth`` [B, H, W], ``pose`` ([B, 6] for ``fmt`` "euler" or "angleaxis",
-    [B, 4, 4] for "matrix") and ``intrinsics`` [B, 3, 3]."""
+def projective_coords(depth: torch.Tensor, pose: torch.Tensor, intrinsics: torch.Tensor,
+                      fmt: str = "euler"):
+    """The coordinate math of ``projective_inverse_warp``: (source-pixel coords
+    [B, H, W, 2], projected z [B, H, W, 1], the pose matrix [B, 4, 4]) of the target
+    ``depth`` [B, H, W] under ``pose`` (``fmt`` as there) and ``intrinsics`` [B, 3, 3]."""
     if fmt in ("euler", "eular", "angleaxis"):
         pose = pose_vec_to_mat(pose, fmt)
     elif fmt != "matrix":
@@ -44,19 +43,33 @@ def projective_inverse_warp(img: torch.Tensor, depth: torch.Tensor, pose: torch.
     cam_coords = pixel_to_cam(depth, intrinsics)
     proj = matmul_f32(pad_intrinsics_4x4(intrinsics), pose)
     coords, warped_depth = cam_to_pixel(cam_coords, proj)
+    return coords, warped_depth, pose
+
+
+def projective_inverse_warp(img: torch.Tensor, depth: torch.Tensor, pose: torch.Tensor,
+                            intrinsics: torch.Tensor, fmt: str = "euler",
+                            sampler: str = "xla") -> WarpResult:
+    """Inverse-warp ``img`` [B, H, W, C] (source view) into the target frame given the
+    target ``depth`` [B, H, W], ``pose`` ([B, 6] for ``fmt`` "euler" or "angleaxis",
+    [B, 4, 4] for "matrix") and ``intrinsics`` [B, 3, 3]."""
+    coords, warped_depth, pose = projective_coords(depth, pose, intrinsics, fmt)
     out, wmask = bilinear_sample(img, coords, sampler=sampler)
     return WarpResult(out, coords, wmask, warped_depth, pose)
+
+
+def flow_coords(flow_x: torch.Tensor, flow_y: torch.Tensor) -> torch.Tensor:
+    """The coordinate math of ``flow_warp``: the identity grid plus the flow
+    (``flow_x/flow_y`` [B, H, W, 1]), [B, H, W, 2]."""
+    _, H, W, _ = flow_x.shape
+    grid = pixel_grid(H, W, homogeneous=False, device=flow_x.device)
+    return torch.stack([grid[0][None] + flow_x[..., 0], grid[1][None] + flow_y[..., 0]], -1)
 
 
 def flow_warp(img: torch.Tensor, flow_x: torch.Tensor, flow_y: torch.Tensor,
               sampler: str = "xla") -> torch.Tensor:
     """Sample ``img`` at the identity grid plus the flow (``flow_x/flow_y``
     [B, H, W, 1])."""
-    _, H, W, _ = img.shape
-    grid = pixel_grid(H, W, homogeneous=False, device=img.device)
-    coords = torch.stack([grid[0][None] + flow_x[..., 0], grid[1][None] + flow_y[..., 0]],
-                         -1)
-    out, _ = bilinear_sample(img, coords, sampler=sampler)
+    out, _ = bilinear_sample(img, flow_coords(flow_x, flow_y), sampler=sampler)
     return out
 
 

@@ -3,8 +3,8 @@
 The port's copy of ``tf_depth_estimation_tpu/losses/config.py`` (plain data): every
 reference experiment differs only in these constants, and the classmethods reproduce each
 entry point's block. ``sampler`` takes the JAX package's names; in the port ``"pallas"``
-selects the hand-written CUDA sampler (``ops/bilinear_sample.py``), ``"fused"`` the fused
-one (``ops/bilinear_sample_fused.py``) and ``"xla"`` the plain PyTorch sampler
+selects the hand-written CUDA sampler (``ops/bilinear_sample.py``), ``"fused"`` the same
+kernels under the fused warp's eligibility rule (``ops/bilinear_sample_fused.py``) and ``"xla"`` the plain PyTorch sampler
 (``geometry/sampling.py``). One preset differs from the JAX package's, in that field
 alone: ``depth_then_cam()`` takes ``"fused"`` where JAX keeps ``"xla"``.
 """
@@ -62,8 +62,8 @@ class LossWeights:
     def optflow_combine(cls) -> "LossWeights":
         """``train_optflow_combine.py:32-41`` — 224x480 (BASELINE config 4).
 
-        ``sampler="pallas"``, as in the JAX package: every warp of the step launches the
-        port's sampler kernel on the GPU.
+        ``sampler="pallas"``, as in the JAX package: the step's 12 warps launch the
+        port's sampler kernels on the GPU, once each way.
         """
         return cls(height=224, width=480, max_steps=20_000,
                    smooth_weight=0.5, data_weight=0.5, optflow_weight=1.0,

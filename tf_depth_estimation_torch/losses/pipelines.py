@@ -7,8 +7,9 @@ and ``depth_only_val_loss`` (BASELINE config 2), ``depth_then_cam_loss`` (config
 (the two phases of ``split_training``); the others come with their experiments. The
 smoothness terms of a loss go through one call of
 ``ops/smoothness.py:smoothness_fused_group`` and its sig terms through one of
-``ops/sig_l2.py:sig_l2_fused_group``, each map at its coefficient: one CUDA launch each
-way on the GPU, the plain versions on the CPU.
+``ops/sig_l2.py:sig_l2_fused_group``, each map at its coefficient, and the warps of configs 3
+and 4 through one call of ``geometry/sampling.py:bilinear_sample_group``: one CUDA launch
+each way on the GPU, the plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -17,10 +18,12 @@ from typing import Optional, Sequence
 import torch
 
 from tf_depth_estimation_torch.geometry.pose import invert_transform, pose_vec_to_mat
+from tf_depth_estimation_torch.geometry.sampling import bilinear_sample_group
 from tf_depth_estimation_torch.geometry.warp import (
     consistent_depth_error,
+    flow_coords,
     flow_from_coords,
-    flow_warp,
+    projective_coords,
     projective_inverse_warp,
 )
 from tf_depth_estimation_torch.losses.basic import (
@@ -111,14 +114,14 @@ def depth_then_cam_loss(image_left: torch.Tensor, image_right: torch.Tensor,
     B = image_left.shape[0]
     n = min(len(pred_disps), w.num_scales)
     smooth_loss = _smooth_loss([1.0 / pred_disps[s] for s in range(n)], _smooth_coefs(w, n))
+    # the warps of all scales in one sampler call, then the terms scale by scale
+    rights = [_area(image_right, w.scale_hw(s)) for s in range(n)]
+    coords = [projective_coords(1.0 / pred_disps[s][..., 0], pred_poses[:, 0, :],
+                                intrinsics[:, s], fmt="euler")[0] for s in range(n)]
+    warped, _ = bilinear_sample_group(rights, coords, w.sampler)
     for s in range(n):
-        hw = w.scale_hw(s)
-        curr_left = _area(image_left, hw)
-        curr_right = _area(image_right, hw)
-        warp = projective_inverse_warp(curr_right, 1.0 / pred_disps[s][..., 0],
-                                       pred_poses[:, 0, :], intrinsics[:, s], fmt="euler",
-                                       sampler=w.sampler)
-        err = (warp.image - curr_left).abs()
+        curr_left = _area(image_left, w.scale_hw(s))
+        err = (warped[s] - curr_left).abs()
         if w.explain_reg_weight > 0:
             logits = pred_exp_logits[s][..., :2]
             ref_mask = reference_explain_mask(B, w.height, w.width, s, device=logits.device)
@@ -148,28 +151,30 @@ def optflow_combine_loss(image_left: torch.Tensor, image_right: torch.Tensor,
         [m for s in range(w.num_scales)
          for m in (pred_depths[s], pred_flow_x[s], pred_flow_y[s])],
         [c for c in _smooth_coefs(w, w.num_scales) for _ in range(3)])
+    # three warps a scale (GT depth, predicted depth, flow) in one sampler call
+    labels, rights, coords = [], [], []
     for s in range(w.num_scales):
         hw = w.scale_hw(s)
-        curr_label = _area(label, hw)
-        curr_left = _area(image_left, hw)
-        curr_right = _area(image_right, hw)
+        labels.append(_area(label, hw))
+        rights += [_area(image_right, hw)] * 3
+        coords += [projective_coords(1.0 / labels[s][..., 0], tgt2src_proj, intrinsics[:, s],
+                                     fmt="matrix")[0],
+                   projective_coords(1.0 / pred_depths[s][..., 0], tgt2src_proj,
+                                     intrinsics[:, s], fmt="matrix")[0],
+                   flow_coords(pred_flow_x[s], pred_flow_y[s])]
+    warped, masks = bilinear_sample_group(rights, coords, w.sampler)
+    for s in range(w.num_scales):
+        curr_label = labels[s]
+        curr_left = _area(image_left, w.scale_hw(s))
 
         depth_loss += (curr_label - pred_depths[s]).abs().mean() * w.depth_weight / 2**s
 
-        gt_warp = projective_inverse_warp(curr_right, 1.0 / curr_label[..., 0],
-                                          tgt2src_proj, intrinsics[:, s], fmt="matrix",
-                                          sampler=w.sampler)
-        pred_warp = projective_inverse_warp(curr_right, 1.0 / pred_depths[s][..., 0],
-                                            tgt2src_proj, intrinsics[:, s], fmt="matrix",
-                                            sampler=w.sampler)
-        wmask = gt_warp.mask  # validity from the GT warp (train_optflow_combine.py:176)
-        pixel_loss += ((pred_warp.image - curr_left).abs() * wmask).mean() \
-            * w.data_weight / 2**s
-
-        flow_img = flow_warp(curr_right, pred_flow_x[s], pred_flow_y[s], sampler=w.sampler)
+        pred_img, flow_img = warped[3 * s + 1], warped[3 * s + 2]
+        wmask = masks[3 * s]  # validity from the GT warp (train_optflow_combine.py:176)
+        pixel_loss += ((pred_img - curr_left).abs() * wmask).mean() * w.data_weight / 2**s
         pixel_loss += ((flow_img - curr_left).abs() * wmask).mean() * w.data_weight / 2**s
 
-        gt_fx, gt_fy = flow_from_coords(gt_warp.coords)
+        gt_fx, gt_fy = flow_from_coords(coords[3 * s])
         optflow_loss += (pred_flow_x[s] - gt_fx).abs().mean() * w.optflow_weight / 2**s
         optflow_loss += (pred_flow_y[s] - gt_fy).abs().mean() * w.optflow_weight / 2**s
 

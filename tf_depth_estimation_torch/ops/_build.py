@@ -27,8 +27,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shar
          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # every source of csrc/, by name
-KERNELS = ("fused_tail", "bilinear_sample", "smoothness", "sig_l2", "bilinear_sample_fused",
-           "dot_loop", "dot_grid")
+KERNELS = ("fused_tail", "bilinear_sample", "smoothness", "sig_l2", "dot_loop", "dot_grid")
 
 # name -> {"lib": ctypes.CDLL, "path": the .so, "seconds": nvcc wall time (0 if cached),
 #          "log": nvcc output}

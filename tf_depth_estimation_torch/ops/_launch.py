@@ -1,7 +1,7 @@
-"""What the loss kernels' wrappers (``ops/smoothness.py``, ``ops/sig_l2.py``) share: the
-call of a C launch function on the current stream of a tensor's card, the raise on the
-``cudaError_t`` it returns, the ticket of a grouped reduction, and the sum of a group
-whose maps take the kernel or the plain term."""
+"""What the grouped kernels' wrappers (``ops/smoothness.py``, ``ops/sig_l2.py``,
+``ops/bilinear_sample.py``) share: the call of a C launch function on the current stream
+of a tensor's card, the raise on the ``cudaError_t`` it returns, the ticket of a grouped
+reduction, and the sum of a group whose maps take the kernel or the plain term."""
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Sequence, Tuple

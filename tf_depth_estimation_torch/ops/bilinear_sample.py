@@ -1,39 +1,54 @@
-"""Bilinear sampling with the reference border rule: a CUDA kernel and its plain version.
+"""Bilinear sampling with the reference border rule: a CUDA forward and backward for a group
+of samplings, and the plain version.
 
 ``bilinear_sample(imgs, coords)`` samples ``imgs`` [B, Hs, Ws, C] float32 at ``coords``
 [B, Ht, Wt, 2] float32 (x, y) and returns ``(out [B, Ht, Wt, C], wmask [B, Ht, Wt, 1])``:
 
     x0 = floor(x), x1 = x0 + 1 (y alike), each clamped to the image for the gather;
-    wx0 = (x1 - x) * [x0 inside], wx1 = (x - x0) * [x1 inside]   (wy alike)
+    wx0 = x0 inside ? x1 - x : 0,  wx1 = x1 inside ? x - x0 : 0   (wy alike)
     out = w00*im00 + w01*im01 + w10*im10 + w11*im11,  w_ab = wx_a * wy_b
     wmask = w00 + w01 + w10 + w11
 
-It replaces ``tf_depth_estimation_tpu/ops/pallas_sample.py:255 bilinear_sample_tpu``
-(kernel ``_sample_kernel`` at ``:97`` behind the XLA prologue ``_prologue`` at ``:69``).
-On a CUDA tensor the forward launches ``csrc/bilinear_sample.cu`` (and counts the launch
-in ``bilinear_sample.launches``) or raises; on a CPU tensor it runs the plain gathers of
-``bilinear_sample_reference``. The kernel takes float32 only.
+``bilinear_sample_group(imgs, coords)`` takes two lists (up to ``MAX_MEMBERS`` samplings of
+any sizes, views allowed) and returns ``(outs, wmasks)``, two lists: a training step's warps
+in one call. ``bilinear_sample`` is a group of one. They replace
+``tf_depth_estimation_tpu/ops/pallas_sample.py:255 bilinear_sample_tpu`` (kernel
+``_sample_kernel`` at ``:97`` behind the XLA prologue ``_prologue`` at ``:69``).
 
-The backward is plain PyTorch, as the JAX VJP (``pallas_sample.py:269-310``) is XLA code:
-like it, the forward saves the four corner planes (the kernel writes them when the coords
-need a gradient), so ``dcoords`` is elementwise on them; ``dimgs`` is a scatter-add
-(``scatter_add_``, atomic and so unordered on the GPU), computed only when the image needs
-a gradient. floor and the clamps
+On CUDA tensors a group launches ``csrc/bilinear_sample.cu`` once each way, or raises: the
+forward writes every member's out and wmask (``bilinear_sample.launches``), the backward
+recomputes the taps and writes dcoords for the members whose coords need a gradient and
+scatters dimgs (atomics into a zeroed buffer, so unordered) for those whose image needs one
+(``bilinear_sample.backward_launches``); a member that needs neither gets no work, and its
+outputs carry no gradient. The outputs of a group are views of one allocation, as are its
+gradients. ``ops/bilinear_sample_fused.py`` launches the same kernels under its own counts.
+On CPU tensors every member is ``bilinear_sample_reference``, the plain version, under
+autograd, as the JAX VJP (``pallas_sample.py:269-310``) is XLA code. floor and the clamps
 have zero gradient, as in both frameworks' autodiff.
 """
 from __future__ import annotations
 
 import ctypes
+import struct
 from functools import lru_cache
+from typing import List, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from tf_depth_estimation_torch.ops import _build
+from tf_depth_estimation_torch.ops import _build, _launch
+
+MAX_MEMBERS = 16  # csrc/bilinear_sample.cu MAX_MEMBERS
+_HEAD = struct.Struct("=ii")                  # csrc/bilinear_sample.cu Group: members, tiles
+_MEMBER = struct.Struct("=QQQQQQQQqiiiiiiii8x")  # csrc/bilinear_sample.cu Member, 112 bytes
 
 
 def _prologue(coords: torch.Tensor, Hs: int, Ws: int):
-    """Clamped corner indices, the four weights and the inside masks for an Hs x Ws
-    image, as ``_bilinear_sample_jnp`` computes them."""
+    """Clamped corner indices and the four weights for an Hs x Ws image, as
+    ``_bilinear_sample_jnp`` computes them. A weight is exactly 0 where its unclamped tap
+    is outside, whatever the coordinate: JAX's product of a weight and a boolean is a
+    select, so a NaN or infinite coordinate gives weights 0 there (out 0, wmask 0,
+    dcoords 0), not NaN."""
     cx, cy = coords[..., 0], coords[..., 1]
     x0 = torch.floor(cx)
     x1 = x0 + 1.0
@@ -41,18 +56,16 @@ def _prologue(coords: torch.Tensor, Hs: int, Ws: int):
     y1 = y0 + 1.0
     x0s, x1s = x0.clamp(0.0, float(Ws - 1)), x1.clamp(0.0, float(Ws - 1))
     y0s, y1s = y0.clamp(0.0, float(Hs - 1)), y1.clamp(0.0, float(Hs - 1))
-    inside = {"x0": (x0 == x0s).to(cx.dtype), "x1": (x1 == x1s).to(cx.dtype),
-              "y0": (y0 == y0s).to(cx.dtype), "y1": (y1 == y1s).to(cx.dtype)}
-    wx0 = (x1 - cx) * inside["x0"]
-    wx1 = (cx - x0) * inside["x1"]
-    wy0 = (y1 - cy) * inside["y0"]
-    wy1 = (cy - y0) * inside["y1"]
-    # the integer clamp only matters for NaN coordinates (NaN weights either way): it
+    wx0 = torch.where(x0 == x0s, x1 - cx, 0.0)
+    wx1 = torch.where(x1 == x1s, cx - x0, 0.0)
+    wy0 = torch.where(y0 == y0s, y1 - cy, 0.0)
+    wy1 = torch.where(y1 == y1s, cy - y0, 0.0)
+    # the integer clamp only matters for NaN coordinates (zero weights either way): it
     # keeps their gather inside the image, where the kernel's fminf/fmaxf put it
     idx = lambda v, n: v.long().clamp(0, n - 1)
     ints = {"ix0": idx(x0s, Ws), "ix1": idx(x1s, Ws), "iy0": idx(y0s, Hs),
             "iy1": idx(y1s, Hs)}
-    return ints, (wx0, wx1, wy0, wy1), inside
+    return ints, (wx0, wx1, wy0, wy1)
 
 
 def _flat_index(ints: dict, iy: str, ix: str, Ws: int) -> torch.Tensor:
@@ -90,7 +103,7 @@ def bilinear_sample_reference(imgs: torch.Tensor, coords: torch.Tensor):
     wmask. Counts its calls in ``bilinear_sample_reference.calls``, so that a run can
     show that a path sampled through a kernel and never through this."""
     bilinear_sample_reference.calls += 1
-    ints, weights, _ = _prologue(coords, *imgs.shape[1:3])
+    ints, weights = _prologue(coords, *imgs.shape[1:3])
     return _combine(weights, _gather_corners(imgs, ints))
 
 
@@ -115,87 +128,183 @@ def _check(imgs: torch.Tensor, coords: torch.Tensor) -> None:
         raise ValueError("bilinear_sample takes contiguous imgs and coords")
 
 
-def _launch(imgs: torch.Tensor, coords: torch.Tensor, corners: bool):
-    """The kernel: (out, wmask, corner planes [4, B, Ht, Wt, C] or None)."""
-    B, Hs, Ws, C = imgs.shape
-    _, Ht, Wt, _ = coords.shape
-    kw = dict(dtype=torch.float32, device=imgs.device)
-    out = torch.empty((B, Ht, Wt, C), **kw)
-    wmask = torch.empty((B, Ht, Wt, 1), **kw)
-    cplanes = torch.empty((4, B, Ht, Wt, C), **kw) if corners else None
-    if wmask.numel() == 0:
-        return out, wmask, cplanes
-    lib = _lib()
-    with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream(imgs.device).cuda_stream
-        err = lib.bilinear_sample_launch(
-            imgs.data_ptr(), coords.data_ptr(), out.data_ptr(), wmask.data_ptr(),
-            cplanes.data_ptr() if corners else None, B, Hs, Ws, Ht, Wt, C, stream)
-    if err != 0:
-        raise RuntimeError(f"bilinear_sample_launch failed: cudaError_t {err}")
-    bilinear_sample.launches += 1
-    return out, wmask, cplanes
+def check_group(imgs: List[torch.Tensor], coords: List[torch.Tensor]) -> None:
+    """``_check`` of every member, and 1 to ``MAX_MEMBERS`` members on one device."""
+    if not 1 <= len(imgs) <= MAX_MEMBERS or len(coords) != len(imgs):
+        raise ValueError(f"a sampler group takes 1 to {MAX_MEMBERS} images and coords each, "
+                         f"got {len(imgs)} and {len(coords)}")
+    for i, c in zip(imgs, coords):
+        _check(i, c)
+        if i.device != imgs[0].device:
+            raise ValueError(f"a sampler group takes tensors on one device, got "
+                             f"{imgs[0].device} and {i.device}")
 
 
-class _BilinearSample(torch.autograd.Function):
+def _pixels(coords: torch.Tensor) -> int:
+    return coords.shape[0] * coords.shape[1] * coords.shape[2]
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _pack(members: Sequence[tuple]) -> bytes:
+    """The group for ``csrc/bilinear_sample.cu`` from ``(imgs, coords, out, wmask, dout,
+    dwmask, dcoords, dimgs)`` members (the last six may be None). Consecutive members that
+    sample one image at coords of one shape form a set whose tiles alternate."""
+    tile = _lib().tile
+    parts, tiles, k = [], 0, 0
+    while k < len(members):
+        imgs, coords = members[k][:2]
+        key = (imgs.data_ptr(), imgs.shape, coords.shape)
+        j = k + 1
+        while j < len(members) and (members[j][0].data_ptr(), members[j][0].shape,
+                                    members[j][1].shape) == key:
+            j += 1
+        B, Ht, Wt, _ = coords.shape
+        _, Hs, Ws, C = imgs.shape
+        n = B * Ht * Wt
+        for lane, (i, c, out, wm, dout, dwm, dc, di) in enumerate(members[k:j]):
+            cp, dcp = c.data_ptr(), _ptr(dc)
+            parts.append(_MEMBER.pack(
+                i.data_ptr(), cp, _ptr(out), _ptr(wm), _ptr(dout), _ptr(dwm), dcp, _ptr(di),
+                n, Hs, Ws, C, Ht * Wt, tiles, j - k, lane, int(cp % 16 == 0 and dcp % 16 == 0)))
+        tiles += (j - k) * -(-n // tile)
+        k = j
+    return _HEAD.pack(len(members), tiles) + b"".join(parts)
+
+
+def _views(buf: torch.Tensor, shapes: Sequence[tuple]) -> List[torch.Tensor]:
+    """Contiguous views of ``buf`` with the 4-d ``shapes``, one after another, each
+    starting on 16 bytes."""
+    views, off = [], 0
+    for B, H, W, C in shapes:
+        views.append(torch.as_strided(buf, (B, H, W, C), (H * W * C, W * C, C, 1), off))
+        off += -(-(B * H * W * C) // 4) * 4
+    return views
+
+
+def _size(shapes: Sequence[tuple]) -> int:
+    return sum(-(-(B * H * W * C) // 4) * 4 for B, H, W, C in shapes)
+
+
+class _SampleGroup(torch.autograd.Function):
+    """Every member's (out, wmask) on CUDA tensors: one launch each way, counted on
+    ``counter.launches`` and ``counter.backward_launches``."""
+
     @staticmethod
-    def forward(ctx, imgs, coords):
-        want_corners = ctx.needs_input_grad[1]
-        if imgs.is_cuda:
-            out, wmask, cplanes = _launch(imgs, coords, want_corners)
-            corners = tuple(cplanes) if want_corners else ()
-        else:
-            ints, weights, _ = _prologue(coords, *imgs.shape[1:3])
-            corners = _gather_corners(imgs, ints)
-            out, wmask = _combine(weights, corners)
-            corners = corners if want_corners else ()
-        ctx.img_shape = imgs.shape
-        ctx.save_for_backward(coords, *corners)
-        return out, wmask
+    def forward(ctx, counter, *tensors):
+        ctx.set_materialize_grads(False)
+        K = len(tensors) // 2
+        imgs, coords = tensors[:K], tensors[K:]
+        shapes = [(*c.shape[:3], i.shape[3]) for i, c in zip(imgs, coords)]
+        shapes += [(*c.shape[:3], 1) for c in coords]
+        buf = torch.empty((_size(shapes),), dtype=torch.float32, device=imgs[0].device)
+        views = _views(buf, shapes)
+        outs, wmasks = views[:K], views[K:]
+        live = [(i, c, o, w, None, None, None, None)
+                for i, c, o, w in zip(imgs, coords, outs, wmasks) if _pixels(c)]
+        if live:
+            _launch.run(_lib().bilinear_group_forward_launch, buf.device, _pack(live))
+            counter.launches += 1
+        need = ctx.needs_input_grad
+        for k in range(K):
+            if not (need[1 + k] or need[1 + K + k]):
+                ctx.mark_non_differentiable(outs[k], wmasks[k])
+        ctx.save_for_backward(*imgs, *coords)
+        ctx.counter = counter
+        return (*outs, *wmasks)
 
     @staticmethod
-    def backward(ctx, dout, dwmask):
-        coords, *corners = ctx.saved_tensors
-        B, Hs, Ws, C = ctx.img_shape
-        ints, (wx0, wx1, wy0, wy1), inside = _prologue(coords, Hs, Ws)
-        dm = dwmask[..., 0]
-        dimgs = dcoords = None
-        if ctx.needs_input_grad[1]:
-            im00, im01, im10, im11 = corners
-            s00 = (dout * im00).sum(-1) + dm
-            s01 = (dout * im01).sum(-1) + dm
-            s10 = (dout * im10).sum(-1) + dm
-            s11 = (dout * im11).sum(-1) + dm
-            # d wx0/dx = -[x0 inside], d wx1/dx = [x1 inside] (y alike)
-            dx0, dx1, dy0, dy1 = -inside["x0"], inside["x1"], -inside["y0"], inside["y1"]
-            dcx = dx0 * wy0 * s00 + dx0 * wy1 * s01 + dx1 * wy0 * s10 + dx1 * wy1 * s11
-            dcy = wx0 * dy0 * s00 + wx0 * dy1 * s01 + wx1 * dy0 * s10 + wx1 * dy1 * s11
-            dcoords = torch.stack([dcx, dcy], -1)
-        if ctx.needs_input_grad[0]:
-            flat = torch.zeros((B, Hs * Ws, C), dtype=dout.dtype, device=dout.device)
-            for (iy, ix), w in ((("iy0", "ix0"), wx0 * wy0), (("iy1", "ix0"), wx0 * wy1),
-                                (("iy0", "ix1"), wx1 * wy0), (("iy1", "ix1"), wx1 * wy1)):
-                upd = (w[..., None] * dout).reshape(B, -1, C)
-                flat.scatter_add_(1, _flat_index(ints, iy, ix, Ws)[..., None]
-                                  .expand(-1, -1, C), upd)
-            dimgs = flat.reshape(B, Hs, Ws, C)
-        return dimgs, dcoords
+    @once_differentiable
+    def backward(ctx, *grads):
+        K = len(grads) // 2
+        saved = ctx.saved_tensors
+        imgs, coords, need = saved[:K], saved[K:], ctx.needs_input_grad
+        f32 = lambda g: None if g is None else g.to(torch.float32).contiguous()
+        douts, dwmasks = [f32(g) for g in grads[:K]], [f32(g) for g in grads[K:]]
+        want_c = [need[1 + K + k] and (douts[k] is not None or dwmasks[k] is not None)
+                  and _pixels(coords[k]) > 0 for k in range(K)]
+        want_i = [need[1 + k] and douts[k] is not None and _pixels(coords[k]) > 0
+                  for k in range(K)]
+        kc = [k for k in range(K) if want_c[k]]
+        ki = [k for k in range(K) if want_i[k]]
+        if not (kc or ki):
+            return (None,) * (1 + 2 * K)
+        dev = imgs[0].device
+        dcoords, dimgs = [None] * K, [None] * K
+        if kc:
+            shapes = [tuple(coords[k].shape) for k in kc]
+            buf = torch.empty((_size(shapes),), dtype=torch.float32, device=dev)
+            for k, v in zip(kc, _views(buf, shapes)):
+                dcoords[k] = v
+        if ki:
+            shapes = [tuple(imgs[k].shape) for k in ki]
+            buf = torch.zeros((_size(shapes),), dtype=torch.float32, device=dev)
+            for k, v in zip(ki, _views(buf, shapes)):
+                dimgs[k] = v
+        members = [(imgs[k], coords[k], None, None, douts[k], dwmasks[k], dcoords[k],
+                    dimgs[k]) for k in range(K) if want_c[k] or want_i[k]]
+        _launch.run(_lib().bilinear_group_backward_launch, dev, _pack(members))
+        ctx.counter.backward_launches += 1
+        return (None, *dimgs, *dcoords)
+
+
+def launch_group(counter, imgs: Sequence[torch.Tensor],
+                 coords: Sequence[torch.Tensor]) -> Tuple[list, list]:
+    """(outs, wmasks) of checked CUDA members through the kernels, the launches counted on
+    ``counter``."""
+    res = _SampleGroup.apply(counter, *imgs, *coords)
+    return list(res[:len(imgs)]), list(res[len(imgs):])
+
+
+def plain_group(imgs: Sequence[torch.Tensor],
+                coords: Sequence[torch.Tensor]) -> Tuple[list, list]:
+    """(outs, wmasks): ``bilinear_sample_reference`` member by member."""
+    pairs = [bilinear_sample_reference(i, c) for i, c in zip(imgs, coords)]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+def bilinear_sample_group(imgs: Sequence[torch.Tensor],
+                          coords: Sequence[torch.Tensor]) -> Tuple[list, list]:
+    """(outs, wmasks) of float32 ``imgs[k]`` [B,Hs,Ws,C] sampled at ``coords[k]``
+    [B,Ht,Wt,2], each member of its own sizes. On CUDA tensors one launch each way for the
+    group (or the call raises); on CPU tensors the plain version member by member."""
+    imgs, coords = [i.contiguous() for i in imgs], [c.contiguous() for c in coords]
+    check_group(imgs, coords)
+    if not imgs[0].is_cuda:
+        return plain_group(imgs, coords)
+    return launch_group(bilinear_sample, imgs, coords)
 
 
 def bilinear_sample(imgs: torch.Tensor, coords: torch.Tensor):
-    """(out [B,Ht,Wt,C], wmask [B,Ht,Wt,1]) from float32 ``imgs`` [B,Hs,Ws,C] and
-    ``coords`` [B,Ht,Wt,2]. On a CUDA tensor this launches the kernel or raises."""
+    """(out [B,Ht,Wt,C], wmask [B,Ht,Wt,1]) from contiguous float32 ``imgs`` [B,Hs,Ws,C]
+    and ``coords`` [B,Ht,Wt,2]: a group of one. On a CUDA tensor this launches the kernel
+    or raises."""
     _check(imgs, coords)
-    return _BilinearSample.apply(imgs, coords)
+    if not imgs.is_cuda:
+        return bilinear_sample_reference(imgs, coords)
+    outs, wmasks = launch_group(bilinear_sample, [imgs], [coords])
+    return outs[0], wmasks[0]
 
 
 bilinear_sample.launches = 0
+bilinear_sample.backward_launches = 0
 
 
 @lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The library of ``csrc/bilinear_sample.cu``, typed, with ``tile``: the target pixels
+    of a tile."""
     lib = _build.load("bilinear_sample")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bilinear_sample_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.bilinear_sample_launch.restype = i
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.bilinear_group_layout.argtypes, lib.bilinear_group_layout.restype = [ip, ip], None
+    for fn in (lib.bilinear_group_forward_launch, lib.bilinear_group_backward_launch):
+        fn.argtypes, fn.restype = [ctypes.c_char_p, ctypes.c_void_p], ctypes.c_int
+    tile, most = ctypes.c_int(), ctypes.c_int()
+    lib.bilinear_group_layout(ctypes.byref(tile), ctypes.byref(most))
+    if most.value != MAX_MEMBERS:
+        raise RuntimeError(f"csrc/bilinear_sample.cu takes {most.value} members, the wrapper "
+                           f"{MAX_MEMBERS}")
+    lib.tile = tile.value
     return lib

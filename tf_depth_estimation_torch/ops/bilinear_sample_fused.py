@@ -1,23 +1,27 @@
-"""The fused bilinear warp sampler: CUDA forward and backward kernels, and the plain version.
+"""The fused bilinear warp sampler: the grouped CUDA sampler under JAX's eligibility rule, and
+the plain version.
 
 ``bilinear_sample_fused(imgs, coords)`` takes ``imgs`` [B, Hs, Ws, C] and ``coords``
 [B, Ht, Wt, 2] (x, y), float32, and returns ``(out [B, Ht, Wt, C], wmask [B, Ht, Wt, 1])``,
-the function of ``ops/bilinear_sample.py`` (the reference border rule). It replaces
+the function of ``ops/bilinear_sample.py`` (the reference border rule);
+``bilinear_sample_fused_group(imgs, coords)`` does so for two lists, a training step's
+warps in one call, and ``bilinear_sample_fused`` is a group of one. They replace
 ``tf_depth_estimation_tpu/ops/pallas_warp.py:144 bilinear_sample_fused`` (kernel
-``_warp_kernel`` at ``:51``) and keeps its eligibility rule word for word
-(``_supported``, ``pallas_warp.py:93-96``): ``Ht * Wt == Hs * Ws``, ``B % 8 == 0`` and
-``Hs * Ws <= 131072``. The rule compares products, not shapes, so a 16x24 image sampled
-at 24x16 coords is eligible.
+``_warp_kernel`` at ``:51``) and keep its eligibility rule word for word (``_supported``,
+``pallas_warp.py:93-96``): ``Ht * Wt == Hs * Ws``, ``B % 8 == 0`` and ``Hs * Ws <= 131072``.
+The rule compares products, not shapes, so a 16x24 image sampled at 24x16 coords is
+eligible.
 
-* On a CUDA tensor, an eligible call launches ``csrc/bilinear_sample_fused.cu``: a forward
-  that writes ``out`` and ``wmask`` and nothing else (``bilinear_sample_fused.launches``),
-  and a backward that recomputes the four taps and writes ``dcoords`` (and ``dimgs``,
-  scattered with atomics, when the image needs a gradient;
-  ``bilinear_sample_fused.backward_launches``). An ineligible call goes to the sampler
-  kernel of ``ops/bilinear_sample.py`` (``bilinear_sample.launches``), where JAX falls
-  back to its plain sampler: that kernel computes the plain sampler bit for bit.
-  Either launches its kernel or raises.
-* On a CPU tensor the call is ``bilinear_sample_reference``, the plain version, under
+* On CUDA tensors the eligible members of a group launch the grouped sampler kernels of
+  ``csrc/bilinear_sample.cu`` once each way, counted in ``bilinear_sample_fused.launches``
+  and ``.backward_launches``: the forward writes ``out`` and ``wmask`` and nothing else,
+  the backward recomputes the four taps and writes ``dcoords`` (and ``dimgs``, scattered
+  with atomics, when the image needs a gradient). The members outside the rule, where JAX
+  falls back to its plain sampler, take the same kernels as ``ops/bilinear_sample.py``'s
+  route and its counts (``bilinear_sample.launches``): the kernels compute the plain
+  sampler bit for bit. So a mixed group makes at most one launch a route each way. Either
+  launches or raises.
+* On CPU tensors every member is ``bilinear_sample_reference``, the plain version, under
   autograd, as JAX's backward is autodiff of its plain sampler (``pallas_warp.py:153-156``).
 
 The wrapper makes ``imgs`` and ``coords`` contiguous (the warps' coordinates may arrive as
@@ -26,17 +30,15 @@ the mask, and an absent gradient is read as zeros without being made.
 """
 from __future__ import annotations
 
-import ctypes
-from functools import lru_cache
+from typing import Sequence, Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
 
-from tf_depth_estimation_torch.ops import _build
 from tf_depth_estimation_torch.ops.bilinear_sample import (
-    _check,
     bilinear_sample,
-    bilinear_sample_reference,
+    check_group,
+    launch_group,
+    plain_group,
 )
 
 _S = 8               # batch multiple of the JAX kernel's blocks (pallas_warp.py:45)
@@ -51,86 +53,35 @@ def _supported(imgs: torch.Tensor, coords: torch.Tensor) -> bool:
     return (Ht * Wt == Hs * Ws) and (B % _S == 0) and (Hs * Ws <= _MAX_HW)
 
 
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _launch_forward(imgs: torch.Tensor, coords: torch.Tensor):
-    B, Hs, Ws, C = imgs.shape
-    _, Ht, Wt, _ = coords.shape
-    out = torch.empty((B, Ht, Wt, C), dtype=torch.float32, device=imgs.device)
-    wmask = torch.empty((B, Ht, Wt, 1), dtype=torch.float32, device=imgs.device)
-    with torch.cuda.device(imgs.device):
-        err = _lib().bilinear_sample_fused_forward_launch(
-            imgs.data_ptr(), coords.data_ptr(), out.data_ptr(), wmask.data_ptr(), B, Hs,
-            Ws, Ht, Wt, C, _stream(imgs))
-    if err != 0:
-        raise RuntimeError(f"bilinear_sample_fused_forward_launch failed: cudaError_t {err}")
-    bilinear_sample_fused.launches += 1
-    return out, wmask
-
-
-def _launch_backward(imgs, coords, dout, dwmask, want_dimgs: bool, want_dcoords: bool):
-    B, Hs, Ws, C = imgs.shape
-    _, Ht, Wt, _ = coords.shape
-    kw = dict(dtype=torch.float32, device=imgs.device)
-    dcoords = torch.empty((B, Ht, Wt, 2), **kw) if want_dcoords else None
-    dimgs = torch.zeros((B, Hs, Ws, C), **kw) if want_dimgs else None
-    ptr = lambda t: None if t is None else t.data_ptr()
-    dout = None if dout is None else dout.to(torch.float32).contiguous()
-    dwmask = None if dwmask is None else dwmask.to(torch.float32).contiguous()
-    with torch.cuda.device(imgs.device):
-        err = _lib().bilinear_sample_fused_backward_launch(
-            imgs.data_ptr(), coords.data_ptr(), ptr(dout), ptr(dwmask), ptr(dcoords),
-            ptr(dimgs), B, Hs, Ws, Ht, Wt, C, _stream(imgs))
-    if err != 0:
-        raise RuntimeError(f"bilinear_sample_fused_backward_launch failed: cudaError_t {err}")
-    bilinear_sample_fused.backward_launches += 1
-    return dimgs, dcoords
-
-
-class _FusedSample(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, imgs, coords):
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(imgs, coords)
-        return _launch_forward(imgs, coords)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, dout, dwmask):
-        imgs, coords = ctx.saved_tensors
-        want_dimgs, want_dcoords = ctx.needs_input_grad[:2]
-        if (dout is None and dwmask is None) or not (want_dimgs or want_dcoords):
-            return None, None
-        return _launch_backward(imgs, coords, dout, dwmask, want_dimgs, want_dcoords)
+def bilinear_sample_fused_group(imgs: Sequence[torch.Tensor],
+                                coords: Sequence[torch.Tensor]) -> Tuple[list, list]:
+    """(outs, wmasks) of float32 ``imgs[k]`` [B,Hs,Ws,C] sampled at ``coords[k]``
+    [B,Ht,Wt,2]. On CUDA tensors the members inside JAX's rule make one launch each way,
+    and those outside it one on the sampler's route (or the call raises); on CPU tensors
+    the plain version member by member."""
+    imgs, coords = [i.contiguous() for i in imgs], [c.contiguous() for c in coords]
+    check_group(imgs, coords)
+    if not imgs[0].is_cuda:
+        return plain_group(imgs, coords)
+    eligible = [_supported(i, c) for i, c in zip(imgs, coords)]
+    outs, wmasks = [None] * len(imgs), [None] * len(imgs)
+    for counter, inside in ((bilinear_sample_fused, True), (bilinear_sample, False)):
+        ks = [k for k, e in enumerate(eligible) if e == inside]
+        if ks:
+            o, w = launch_group(counter, [imgs[k] for k in ks], [coords[k] for k in ks])
+            for k, ok, wk in zip(ks, o, w):
+                outs[k], wmasks[k] = ok, wk
+    return outs, wmasks
 
 
 def bilinear_sample_fused(imgs: torch.Tensor, coords: torch.Tensor):
     """(out [B,Ht,Wt,C], wmask [B,Ht,Wt,1]) from float32 ``imgs`` [B,Hs,Ws,C] and
-    ``coords`` [B,Ht,Wt,2]. On a CUDA tensor this launches the fused kernels, or the
-    sampler kernel of ``ops/bilinear_sample.py`` for a call outside JAX's rule, or
-    raises; on a CPU tensor it is the plain version."""
-    imgs, coords = imgs.contiguous(), coords.contiguous()
-    _check(imgs, coords)
-    if not imgs.is_cuda:
-        return bilinear_sample_reference(imgs, coords)
-    if not _supported(imgs, coords):
-        return bilinear_sample(imgs, coords)
-    return _FusedSample.apply(imgs, coords)
+    ``coords`` [B,Ht,Wt,2]: a group of one. On a CUDA tensor this launches the kernels on
+    this route, or on the sampler's route for a call outside JAX's rule, or raises; on a
+    CPU tensor it is the plain version."""
+    outs, wmasks = bilinear_sample_fused_group([imgs], [coords])
+    return outs[0], wmasks[0]
 
 
 bilinear_sample_fused.launches = 0
 bilinear_sample_fused.backward_launches = 0
-
-
-@lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("bilinear_sample_fused")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bilinear_sample_fused_forward_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-    lib.bilinear_sample_fused_forward_launch.restype = i
-    lib.bilinear_sample_fused_backward_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                                          i, p]
-    lib.bilinear_sample_fused_backward_launch.restype = i
-    return lib

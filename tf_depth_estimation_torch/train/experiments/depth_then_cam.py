@@ -4,9 +4,9 @@ The full-resolution DepthPoseNet (the reference script indexes 4 scales) on DeMo
 pairs at 192x256, batch 16: per scale the explainability-weighted photometric L1 of the
 right image warped with the predicted Euler pose, the smoothness of 1/disp and the
 explainability cross-entropy (``depth_then_cam_loss``); Adam at a constant rate;
-checkpoints of the group ``model`` in ``--checkpoint_dir``. On the GPU every warp runs
-the fused sampler kernels (``ops/bilinear_sample_fused.py``) and every smoothness term
-``csrc/smoothness.cu``. ::
+checkpoints of the group ``model`` in ``--checkpoint_dir``. On the GPU the step's warps
+run the fused sampler kernels (``ops/bilinear_sample_fused.py``) once each way and its
+smoothness terms ``csrc/smoothness.cu``. ::
 
     python -m tf_depth_estimation_torch.train.experiments.depth_then_cam \\
         --dataset_dir D [--device cpu] [--dtype float32]

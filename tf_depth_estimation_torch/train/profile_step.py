@@ -48,8 +48,7 @@ from tf_depth_estimation_torch.train.steps import (
 )
 
 # kernel-name fragments -> kind of work, first match wins
-KINDS = (("bilinear_sample", "bilinear_sample kernel"),
-         ("warp_fused", "fused sampler kernels"),
+KINDS = (("bilinear_group", "sampler kernels"),
          ("smooth_", "smoothness kernels"),
          ("sig_", "sig kernels"), ("conv", "convolution"),
          ("gemm", "convolution"), ("xmma", "convolution"), ("cudnn", "convolution"),
