@@ -5,8 +5,10 @@ serve depth4 DispNet at 576x384 with the committed teacher weights, train config
 depth with in-loop validation) at 240x720, train both phases of split_training
 (DepthPoseNet pairwise, then depth4 over [coarse depth | image]) at 192x256, train config 3
 (the full-resolution DepthPoseNet, self-supervised depth and pose) at 192x256, run the eval
-harness's two nets, serve DepthPoseNet pairs, run the int8 / bf16 tensor-core probes and
-serve TurboDepthNet.
+harness's two nets, serve DepthPoseNet pairs, run the int8 / bf16 tensor-core probes,
+serve TurboDepthNet, train TurboDepthNet on config 2 (``depth_only --turbo``) and by
+distillation from the depth4 teacher, serve from checkpoint directories and gather from a
+device-resident corpus.
 
     python3 chip_smoke.py
 
@@ -151,7 +153,30 @@ Phases, each raising on failure:
      turbo-small weights answers requests of 8, 5 and 1 frames at 576x384 within phase
      5's limits of the f32 module forward, with no kernel of this package on the path;
      frames/s of the bf16 folded forward at B=128 (CUDA events) and of the predictor from
-     uint8 host frames.
+     uint8 host frames;
+ 27. serving, a main path (after phase 12, on its checkpoint): ``infer/cli.py --mode
+     depth --checkpoint_dir`` over 12 JPEGs at 240x720, B=8, one ``fused_tail`` launch a
+     batch (2) and no other launch;
+ 28. training, a main path: ``depth_only --turbo colon`` (bf16, B=10, 240x720, the same
+     dataset) for 5 steps with a validation every 2, the counts set to 0 before and read
+     after (one forward and one backward smoothness launch a step, one forward a
+     validation, nothing else); every record finite; then its ``model`` checkpoint served
+     by ``infer/cli.py --mode turbo --checkpoint_group model --turbo_variant colon``;
+ 29. training, a main path: distillation (``distill_turbo.py``'s ``main``, bf16, B=8,
+     576x384, turbo-base, the committed teacher as ``model-0.npz`` of a teacher directory)
+     for 5 steps with a validation every 2, the counts set to 0 before and read after:
+     exactly one ``fused_tail`` launch a step and one a validation (5 + 2), nothing else;
+     every record finite; ``turbo-5.npz`` read back into the student, eval forward
+     finite; then served by ``infer/cli.py --mode turbo --checkpoint_dir``;
+ 30. step parity and times: one f32 distill step with the teacher's fused tail against
+     one with the native tail from one init and batch (loss components within 1e-4, the
+     parameters as phase 9), the bf16 step's total against the f32 one; ms/step of the
+     bf16 distill step and of the teacher's forward in it (fused and native tails; CUDA
+     events, two turns);
+ 31. serving, a main path: ``DepthPredictor(use_fast=False)``, the bf16 module forward,
+     answers requests of 8, 5 and 1 frames at 576x384 within phase 5's limits, with no
+     launch; then a ``DeviceCache`` of 64 uint8 frames at 576x384 (42 MB) gathered at B=8
+     with mirror and rot180 bits, bit-equal to numpy's gather, and the gather timed.
 The GPU machine has no ``h5py``, so the smoke cannot write the DeMoN HDF5 files that the
 split_training and depth_then_cam CLIs read (``data/demon.py``): phases 15 and 19 feed the
 CLIs' train functions batches of synthetic scenes, augmented and preprocessed by
@@ -169,6 +194,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import tempfile
 import time
@@ -177,9 +203,11 @@ import numpy as np
 import torch
 
 from tf_depth_estimation_torch.data.colon import PairDepthDataset
+from tf_depth_estimation_torch.data.device_cache import DeviceCache
 from tf_depth_estimation_torch.data.pipeline import BatchLoader, to_device
 from tf_depth_estimation_torch.data.synthetic import write_colon_pair_dataset
 from tf_depth_estimation_torch.geometry.warp import projective_inverse_warp
+from tf_depth_estimation_torch.infer import cli as infer_cli
 from tf_depth_estimation_torch.infer.fast import (
     fast_depth_forward,
     fold_weights,
@@ -240,9 +268,11 @@ from tf_depth_estimation_torch.tools import probe_int8_dot, probe_int8_dot2, sam
 from tf_depth_estimation_torch.tools.common import inputs as probe_inputs
 from tf_depth_estimation_torch.tools.common import library_product, time_2arg
 from tf_depth_estimation_torch.train import profile_step
+from tf_depth_estimation_torch.train.distill import folded_teacher, make_distill_step
 from tf_depth_estimation_torch.train.experiments import (
     depth_only,
     depth_then_cam,
+    distill_turbo,
     eval_harness,
     optflow_combine,
     split_training,
@@ -370,6 +400,17 @@ TURBO_BENCH_BATCH = 128
 # further than 2.5e-2 from its f32 module (tests/test_torch_turbo.py holds both packages
 # to these limits)
 TOL_TURBO_SERVING = (5e-2, 5e-3)
+# distillation, a training path (train/experiments/distill_turbo.py defaults): the depth4
+# teacher and a turbo-base student at 576x384, batch 8, bf16; 5 steps, a validation every
+# 2. The teacher's eval forward runs the fused tail once a step and once a validation
+DISTILL_BATCH, DISTILL_STEPS, DISTILL_VAL_CHECK = 8, 5, 2
+TAIL_PER_DISTILL_STEP = TAIL_PER_DISTILL_VAL = 1
+# one f32 distill step, the teacher's tail fused vs native: the tail's f32 kernel is within
+# 2e-5 of its plain version on [0, 4] disparities (TOL_TAIL), which moves a mean L1 of
+# ~1 by ~2e-5 at most; 1e-4 leaves room for cuDNN's sum order in the rest
+TOL_DISTILL_LOSS = 1e-4
+# DeviceCache: a 64-frame uint8 corpus at 576x384 (42 MB)
+CACHE_FRAMES = 64
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32, PEAK_BF16, PEAK_HBM = 67e12, 989e12, 3.35e12
 PEAK_INT8 = 1979e12
@@ -473,9 +514,10 @@ def phase_forward(variables: dict, device, height: int = HEIGHT, width: int = WI
 
 
 def phase_serving(variables: dict, device, height: int = HEIGHT, width: int = WIDTH,
-                  batch: int = 8) -> dict:
-    """DepthPredictor (bf16, fused tail) answers requests of ``batch`` (at least 5), 5
-    and 1 frames; each answer is held against the float32 module forward of the frames."""
+                  batch: int = 8, use_fast: bool = True) -> dict:
+    """DepthPredictor (bf16; the folded forward with the fused tail, or with ``use_fast``
+    False the module's eval forward) answers requests of ``batch`` (at least 5), 5 and 1
+    frames; each answer is held against the float32 module forward of the frames."""
     if batch < 5:
         raise ValueError(f"serving needs a batch of at least 5, got {batch}")
     frames = _frames(batch, height, width, seed=SEED + 1)
@@ -485,7 +527,10 @@ def phase_serving(variables: dict, device, height: int = HEIGHT, width: int = WI
         ref = ref[0][:, 0].cpu().numpy()
     pred = DepthPredictor(variables["params"], variables["batch_stats"], height=height,
                           width=width, batch_size=batch, dtype=torch.bfloat16,
-                          device=device)
+                          use_fast=use_fast, device=device)
+    forward = "folded" if use_fast else "module"
+    if pred.uses_fast_path != use_fast:
+        raise AssertionError(f"DepthPredictor(use_fast={use_fast}) took the other forward")
     full = None
     for n in (batch, 5, 1):
         t0 = time.perf_counter()
@@ -506,8 +551,8 @@ def phase_serving(variables: dict, device, height: int = HEIGHT, width: int = WI
             if pad_diff != 0.0:
                 raise AssertionError(f"serving {n} frames differs from the full batch "
                                      f"by {pad_diff}")
-        print(f"serving: {n} frames -> {out.shape} float32, finite, range "
-              f"[{out.min():.3f}, {out.max():.3f}], {ms:.1f} ms host clock, abs err max "
+        print(f"serving ({forward} forward): {n} frames -> {out.shape} float32, finite, "
+              f"range [{out.min():.3f}, {out.max():.3f}], {ms:.1f} ms host clock, abs err max "
               f"{err:.3e}, mean {mean:.3e} to the f32 module forward (tolerance max "
               f"{TOL_SERVING[0]:.1e}, mean {TOL_SERVING[1]:.1e})")
     return {"frames": batch + 5 + 1}
@@ -952,6 +997,25 @@ def phase_smoothness(device, smi: str) -> dict:
     return worst
 
 
+def _train_records(directory: str, steps: int, val_check: int, train_keys, val_keys,
+                   label: str, smi: str) -> list:
+    """A CLI run's ``metrics.jsonl``: ``steps`` train and ``steps // val_check`` val
+    records with finite ``train_keys`` and ``val_keys``, each printed; returns the val
+    records."""
+    with open(os.path.join(directory, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    train = [r for r in records if r["scope"] == "train"]
+    val = [r for r in records if r["scope"] == "val"]
+    finite = all(np.isfinite(r[k]) for r in train for k in train_keys) \
+        and all(np.isfinite(r[k]) for r in val for k in val_keys)
+    if len(train) != steps or len(val) != steps // val_check or not finite:
+        raise AssertionError(f"{label}: records {records}")
+    for r in records:
+        print(f"{label} {r['scope']} step {r['step']}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r.items() if k not in ("step", "scope")) + f" [{smi}]")
+    return val
+
+
 def phase_depth_only(device, dataset: str, *, height: int = C2_HEIGHT,
                      width: int = C2_WIDTH, batch: int = C2_BATCH, steps: int = C2_STEPS,
                      val_check: int = C2_VAL_CHECK, dtype: str = "bfloat16",
@@ -969,18 +1033,10 @@ def phase_depth_only(device, dataset: str, *, height: int = C2_HEIGHT,
     if device != "cpu":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
-        records = [json.loads(line) for line in f]
-    train = [r for r in records if r["scope"] == "train"]
-    val = [r for r in records if r["scope"] == "val"]
-    finite = all(np.isfinite(r[k]) for r in train for k in ("total", "depth", "smooth")) \
-        and all(np.isfinite(r[k]) for r in val for k in ("total", "si_log_rmse", "smooth"))
-    if state.step != steps or len(train) != steps or len(val) != steps // val_check \
-            or not finite:
-        raise AssertionError(f"depth_only: step {state.step}, records {records}")
-    for r in records:
-        print(f"depth_only {r['scope']} step {r['step']}: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in r.items() if k not in ("step", "scope")) + f" [{smi}]")
+    if state.step != steps:
+        raise AssertionError(f"depth_only stopped at step {state.step}")
+    val = _train_records(ckpt, steps, val_check, ("total", "depth", "smooth"),
+                         ("total", "si_log_rmse", "smooth"), "depth_only", smi)
     variables, meta = load_variables_npz(os.path.join(ckpt, f"model-{steps}.npz"))
     model = dispnet_from_variables(variables, device=device)
     x = torch.from_numpy(_frames(batch, height, width)).to(device).permute(0, 3, 1, 2).float()
@@ -995,7 +1051,7 @@ def phase_depth_only(device, dataset: str, *, height: int = C2_HEIGHT,
           f"and {len(val)} validations through the CLI in {seconds:.1f} s host clock; every "
           f"record finite; model-{steps}.npz read back into DispNet(depth4), eval forward "
           f"finite [{smi}]")
-    return {"steps": steps, "validations": len(val), "seconds": seconds}
+    return {"steps": steps, "validations": len(val), "seconds": seconds, "checkpoint": ckpt}
 
 
 def smooth_bound(pixels: int, backward: bool) -> tuple:
@@ -1651,32 +1707,33 @@ def phase_depth_then_cam(device, root: str, *, height: int = C3_HEIGHT,
     return {"per_step": per_step, "seconds": seconds, "variables": variables}
 
 
-def _compare_steps(label: str, runs: dict, lr: float, smi: str) -> dict:
+def _compare_steps(label: str, runs: dict, lr: float, smi: str, total: str = "total",
+                   loss_rtol: float = TOL_STEP["loss_rtol"]) -> dict:
     """Hold ``runs["kernel"]`` to ``runs["plain"]`` (one f32 step each: (metrics,
-    parameters)) and ``runs["kernel_bf16"]``'s total to the f32 one, at TOL_STEP and
-    TOL_BF16_LOSS."""
+    parameters)) and ``runs["kernel_bf16"]``'s ``total`` to the f32 one, at ``loss_rtol``,
+    TOL_STEP and TOL_BF16_LOSS."""
     (lk, pk), (lp, pp), (lb, _) = runs["kernel"], runs["plain"], runs["kernel_bf16"]
     loss_err = max(_rel(lk[k], lp[k]) for k in lp)
-    off = total = 0
+    off = n = 0
     worst = 0.0
     for k in pp:
         diff = (pk[k] - pp[k]).abs()
         worst = max(worst, diff.max().item())
         off += int((diff > TOL_STEP["param_atol"]).sum())
-        total += diff.numel()
-    bf16_err = _rel(lb["total"], lp["total"])
+        n += diff.numel()
+    bf16_err = _rel(lb[total], lp[total])
     print(f"step parity f32 {label}, kernels vs plain: " + ", ".join(
         f"{k} {lk[k]:.6f}/{lp[k]:.6f}" for k in lp)
         + f"; loss components rel err max {loss_err:.2e} (tolerance "
-        f"{TOL_STEP['loss_rtol']:.0e}); params after Adam: max abs diff {worst:.2e} "
-        f"(tolerance 2 lr = {2 * lr:.0e}), {off} of {total} ({off / total:.4%}) beyond "
+        f"{loss_rtol:.0e}); params after Adam: max abs diff {worst:.2e} "
+        f"(tolerance 2 lr = {2 * lr:.0e}), {off} of {n} ({off / n:.4%}) beyond "
         f"{TOL_STEP['param_atol']:.0e} (tolerance {TOL_STEP['param_share_off']:.0%}); bf16 "
-        f"total {lb['total']:.4f} vs f32 {lp['total']:.4f}, rel {bf16_err:.2e} "
+        f"{total} {lb[total]:.4f} vs f32 {lp[total]:.4f}, rel {bf16_err:.2e} "
         f"(tolerance {TOL_BF16_LOSS}) [{smi}]")
-    if loss_err > TOL_STEP["loss_rtol"] or worst > 2 * lr * (1 + 1e-4) \
-            or off / total >= TOL_STEP["param_share_off"] or bf16_err > TOL_BF16_LOSS:
+    if loss_err > loss_rtol or worst > 2 * lr * (1 + 1e-4) \
+            or off / n >= TOL_STEP["param_share_off"] or bf16_err > TOL_BF16_LOSS:
         raise AssertionError(f"{label} step parity beyond its tolerances")
-    return {"loss_rel_err": loss_err, "param_share_off": off / total, "bf16_rel": bf16_err}
+    return {"loss_rel_err": loss_err, "param_share_off": off / n, "bf16_rel": bf16_err}
 
 
 def phase_depth_then_cam_parity(device, smi: str) -> dict:
@@ -2194,6 +2251,243 @@ def phase_turbo_serving(device, smi: str = "", height: int = HEIGHT, width: int 
     return {"frames": batch + 5 + 1, "ms": ms, "frames_per_s": bench_batch / ms * 1e3,
             "host_frames_per_s": bench_batch / host_ms * 1e3}
 
+def _write_jpegs(directory: str, n: int, height: int, width: int, seed: int) -> str:
+    import PIL.Image as pil
+
+    os.makedirs(directory, exist_ok=True)
+    for i, img in enumerate(_frames(n, height, width, seed=seed)):
+        pil.fromarray(img).save(os.path.join(directory, f"f{i:03d}.jpg"))
+    return directory
+
+
+def serve_checkpoint(device, ckpt: str, frames: str, mode: str, *, height: int, width: int,
+                     batch: int, dtype: str = "bfloat16", extra=(), smi: str = "") -> dict:
+    """``infer/cli.py --mode <mode> --checkpoint_dir <ckpt>`` over the JPEGs of ``frames``
+    at ``height`` x ``width``: one dump a frame, each of the output size and finite."""
+    out_dir = os.path.join(os.path.dirname(frames), f"served_{mode}_{os.path.basename(ckpt)}")
+    t0 = time.perf_counter()
+    written = infer_cli.main([
+        "--mode", mode, "--checkpoint_dir", ckpt, "--dataset_dir", frames,
+        "--output_dir", out_dir, "--image_height", str(height), "--image_width", str(width),
+        "--batch_size", str(batch), "--dtype", dtype, "--device", str(device),
+        "--out_height", str(height), "--out_width", str(width), *extra])
+    seconds = time.perf_counter() - t0
+    n = len(os.listdir(frames))
+    dumps = [np.fromfile(p, np.float32) for p in written]
+    if len(written) != n or any(d.shape != (height * width,) or not np.isfinite(d).all()
+                                for d in dumps):
+        raise AssertionError(f"serving {ckpt} ({mode}): {len(written)} dumps of {n} frames, "
+                             f"shapes {[d.shape for d in dumps]} or non-finite values")
+    print(f"checkpoint serving: infer/cli.py --mode {mode} --checkpoint_dir "
+          f"{os.path.basename(ckpt)} {' '.join(extra)} wrote {n} finite {height}x{width} "
+          f"dumps in {seconds:.1f} s host clock, range [{min(d.min() for d in dumps):.3f}, "
+          f"{max(d.max() for d in dumps):.3f}] [{smi}]")
+    return {"frames": n, "seconds": seconds}
+
+
+def phase_distill(device, root: str, *, height: int = HEIGHT, width: int = WIDTH,
+                  batch: int = DISTILL_BATCH, steps: int = DISTILL_STEPS,
+                  val_check: int = DISTILL_VAL_CHECK, variant: str = "base",
+                  dtype: str = "bfloat16", smi: str = "") -> dict:
+    """The distillation CLI (``distill_turbo.py``'s ``main``) for ``steps`` steps with a
+    validation every ``val_check``: the committed depth4 teacher as ``model-0.npz`` of a
+    teacher directory, a turbo student of ``variant`` on the synthetic frames. The launch
+    counts are set to 0 just before and read just after (returned as ``counts``). Every
+    record finite; ``turbo-<steps>.npz`` read back into the student, whose eval forward
+    is finite; then ``infer/cli.py --mode turbo --checkpoint_dir`` serves frames from it."""
+    teacher_dir = os.path.join(root, "teacher")
+    os.makedirs(teacher_dir, exist_ok=True)
+    shutil.copyfile(TEACHER, os.path.join(teacher_dir, "model-0.npz"))
+    ckpt = os.path.join(root, "checkpoints_distill")
+    reset_counts()  # a main path: distillation
+    t0 = time.perf_counter()
+    state, _ = distill_turbo.main([
+        "--teacher_checkpoint_dir", teacher_dir, "--checkpoint_dir", ckpt,
+        "--turbo_variant", variant, "--image_height", str(height), "--image_width",
+        str(width), "--batch_size", str(batch), "--max_steps", str(steps),
+        "--summary_freq", "1", "--validation_check", str(val_check),
+        "--save_latest_freq", str(steps), "--dtype", dtype, "--device", str(device),
+        "--seed", str(SEED)])
+    counts = read_counts()
+    seconds = time.perf_counter() - t0
+    if state.step != steps:
+        raise AssertionError(f"distillation stopped at step {state.step}")
+    val = _train_records(ckpt, steps, val_check, ("total_loss",) + tuple(
+        f"distill_l1_s{s}" for s in range(4)), ("mae_vs_teacher", "absrel_vs_teacher"),
+        "distill", smi)
+    v = TurboVariant.by_name(variant)
+    variables, _ = load_variables_npz(os.path.join(ckpt, f"turbo-{steps}.npz"))
+    student = turbo_from_variables(variables, v, device=device)
+    with torch.no_grad():
+        outs = student(torch.from_numpy(_frames(2, height, width)).to(device))
+    shapes = [(2, height >> s, width >> s, 1) for s in range(4)]
+    if [tuple(o.shape) for o in outs] != shapes or not all(
+            bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError(f"distilled turbo-{variant}: {[tuple(o.shape) for o in outs]}")
+    print(f"distill: {steps} steps of turbo-{variant} from the depth4 teacher ({dtype}, "
+          f"{height}x{width}, batch {batch}) and {len(val)} validations through the CLI in "
+          f"{seconds:.1f} s host clock; every record finite; turbo-{steps}.npz read back "
+          f"into TurboDepthNet({variant}), eval forward finite; launches {counts} [{smi}]")
+    frames = _write_jpegs(os.path.join(root, "frames_distill"), 3, height, width, SEED + 20)
+    reset_counts()
+    served = serve_checkpoint(device, ckpt, frames, "turbo", height=height, width=width,
+                              batch=batch, dtype=dtype, extra=("--turbo_variant", variant),
+                              smi=smi)
+    if any(read_counts().values()):
+        raise AssertionError(f"turbo serving launched {read_counts()}")
+    return {"steps": steps, "validations": len(val), "counts": counts,
+            "seconds": seconds, "served": served["frames"]}
+
+
+def _distill_run(device, teacher_vars: dict, sd: dict, images: torch.Tensor,
+                 dtype: torch.dtype, tail: str, variant: str):
+    """One distill step of a turbo student from the state dict ``sd``; (metrics,
+    parameters)."""
+    student = TurboDepthNet(TurboVariant.by_name(variant), dtype=dtype)
+    student.load_state_dict(sd)
+    state = create_train_state(student.to(device))
+    teacher = folded_teacher(teacher_vars, dtype=dtype, tail=tail, device=device)
+    state, metrics = make_distill_step(teacher)(state, images)
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: p.detach() for k, p in state.model.named_parameters()})
+
+
+def phase_distill_parity(device, smi: str = "", height: int = HEIGHT, width: int = WIDTH,
+                         batch: int = DISTILL_BATCH, variant: str = "base") -> dict:
+    """One f32 distill step with the teacher's fused tail against one with the native
+    tail (the plain chain of layers), from one student init and batch: the loss components
+    within TOL_DISTILL_LOSS, the parameters as TOL_STEP holds them; the bf16 step's total
+    against the f32 one."""
+    teacher_vars, _ = load_variables_npz(TEACHER)
+    sd = copy.deepcopy(TurboDepthNet(TurboVariant.by_name(variant),
+                                     generator=torch.Generator().manual_seed(SEED)).state_dict())
+    images = torch.from_numpy(_frames(batch, height, width, seed=SEED + 21)).to(device).float()
+    runs = {name: _distill_run(device, teacher_vars, sd, images, dt, tail, variant)
+            for name, dt, tail in (("kernel", torch.float32, "fused"),
+                                   ("plain", torch.float32, "native"),
+                                   ("kernel_bf16", torch.bfloat16, "fused"))}
+    return _compare_steps(f"distillation (turbo-{variant}, {height}x{width}, B={batch}), "
+                          f"teacher tail fused vs native", runs, 2e-4, smi,
+                          total="total_loss", loss_rtol=TOL_DISTILL_LOSS)
+
+
+def phase_distill_times(device, smi: str) -> dict:
+    """ms/step of the bf16 distill step (turbo-base, 576x384, B=8) and of the teacher's
+    frozen forward timed alone on the same images (fused tail; the native tail beside it),
+    CUDA events, in turns; ``teacher_alone_over_step`` is the ratio of the two loops, not
+    a share measured inside the step."""
+    teacher_vars, _ = load_variables_npz(TEACHER)
+    student = TurboDepthNet(TurboVariant.base(), generator=torch.Generator().manual_seed(SEED),
+                            dtype=torch.bfloat16)
+    state = create_train_state(student.to(device))
+    images = torch.from_numpy(_frames(DISTILL_BATCH, HEIGHT, WIDTH, seed=SEED + 22))
+    images = images.to(device).float()
+    teachers = {tail: folded_teacher(teacher_vars, dtype=torch.bfloat16, tail=tail,
+                                     device=device) for tail in ("fused", "native")}
+    step = make_distill_step(teachers["fused"])
+    times = {"step": [], "teacher": [], "teacher_native": []}
+    for _ in range(2):
+        times["step"].append(time_ms(lambda: step(state, images), 10))
+        with torch.no_grad():
+            times["teacher"].append(time_ms(lambda: teachers["fused"](images), 10))
+            times["teacher_native"].append(time_ms(lambda: teachers["native"](images), 10))
+    out = {k: sum(v) / len(v) for k, v in times.items()}
+    out["teacher_alone_over_step"] = out["teacher"] / out["step"]
+    print(f"time distill step bf16 turbo-base {HEIGHT}x{WIDTH} B={DISTILL_BATCH}: "
+          f"{out['step']:.2f} ms/step (turns {', '.join(f'{t:.2f}' for t in times['step'])}), "
+          f"{DISTILL_BATCH / out['step'] * 1e3:.1f} frames/s; the teacher's forward timed "
+          f"alone (fused tail) {out['teacher']:.2f} ms, "
+          f"{out['teacher_alone_over_step']:.1%} of the step's time; "
+          f"with the native tail {out['teacher_native']:.2f} ms (CUDA events) [{smi}]")
+    return out
+
+
+def phase_depth_only_turbo(device, dataset: str, *, height: int = C2_HEIGHT,
+                           width: int = C2_WIDTH, batch: int = C2_BATCH,
+                           steps: int = C2_STEPS, val_check: int = C2_VAL_CHECK,
+                           variant: str = "colon", dtype: str = "bfloat16",
+                           smi: str = "") -> dict:
+    """The config-2 CLI with ``--turbo <variant>`` for ``steps`` steps with a validation
+    every ``val_check``, the launch counts set to 0 just before and read just after
+    (``counts``); every record finite; then the ``model`` checkpoint served by
+    ``infer/cli.py --mode turbo --checkpoint_group model``."""
+    root = os.path.dirname(dataset)
+    ckpt = os.path.join(root, "checkpoints_depth_only_turbo")
+    reset_counts()  # a main path: depth_only --turbo
+    t0 = time.perf_counter()
+    state, _ = depth_only.main([
+        "--dataset_dir", dataset, "--checkpoint_dir", ckpt, "--batch_size", str(batch),
+        "--max_steps", str(steps), "--summary_freq", "1", "--save_latest_freq", str(steps),
+        "--validation_check", str(val_check), "--image_height", str(height),
+        "--image_width", str(width), "--dtype", dtype, "--device", str(device),
+        "--seed", str(SEED), "--turbo", variant])
+    counts = read_counts()
+    seconds = time.perf_counter() - t0
+    if state.step != steps or not isinstance(state.model, TurboDepthNet):
+        raise AssertionError(f"depth_only --turbo: step {state.step}, {type(state.model)}")
+    val = _train_records(ckpt, steps, val_check, ("total", "depth", "smooth"),
+                         ("total", "si_log_rmse", "smooth"), "depth_only --turbo", smi)
+    print(f"depth_only --turbo {variant}: {steps} steps ({dtype}, {height}x{width}, batch "
+          f"{batch}) and {len(val)} validations through the CLI in {seconds:.1f} s host "
+          f"clock; every record finite; launches {counts} [{smi}]")
+    frames = _write_jpegs(os.path.join(root, "frames_turbo"), 3, height, width, SEED + 23)
+    reset_counts()
+    served = serve_checkpoint(device, ckpt, frames, "turbo", height=height, width=width,
+                              batch=batch, dtype=dtype, smi=smi, extra=(
+                                  "--checkpoint_group", "model", "--turbo_variant", variant))
+    if any(read_counts().values()):
+        raise AssertionError(f"turbo serving launched {read_counts()}")
+    return {"steps": steps, "validations": len(val), "counts": counts, "seconds": seconds,
+            "served": served["frames"]}
+
+
+def phase_depth_checkpoint_serving(device, ckpt: str, *, height: int = C2_HEIGHT,
+                                   width: int = C2_WIDTH, batch: int = 8, n: int = 12,
+                                   dtype: str = "bfloat16", smi: str = "") -> dict:
+    """``infer/cli.py --mode depth --checkpoint_dir`` over ``n`` frames (at most 4
+    batches: one chunk of the predictor), the launch counts set to 0 just before and read
+    just after: one fused_tail launch a batch."""
+    if n > 4 * batch:
+        raise ValueError(f"{n} frames are more than one chunk of {4 * batch}")
+    frames = _write_jpegs(os.path.join(os.path.dirname(ckpt), "frames_depth"), n, height,
+                          width, SEED + 24)
+    reset_counts()  # a main path: depth serving from a checkpoint directory
+    served = serve_checkpoint(device, ckpt, frames, "depth", height=height, width=width,
+                              batch=batch, dtype=dtype, smi=smi)
+    counts = read_counts()
+    return {"batches": -(-n // batch), "counts": counts, **served}
+
+
+def phase_device_cache(device, smi: str = "", n: int = CACHE_FRAMES, height: int = HEIGHT,
+                       width: int = WIDTH, batch: int = DISTILL_BATCH,
+                       steps: int = 3) -> dict:
+    """A seeded uint8 corpus of ``n`` frames in a ``DeviceCache`` on ``device``, gathered
+    at ``batch`` with mirror and rot180 bits for ``steps`` batches: each gathered batch
+    bit-equal to the same gather in numpy; the gather's time (CUDA events on the card)."""
+    frames = _frames(n, height, width, seed=SEED + 25)
+    cache = DeviceCache({"image": frames}, float_keys=("image",), aug_keys=("image",),
+                        device=device)
+    flips = rots = 0
+    for idx, flip, rot in cache.index_stream(batch, seed=SEED, augment=True,
+                                             num_steps=steps):
+        got = cache.gather(idx, flip=flip, rot=rot)["image"]
+        want = frames[idx].astype(np.float32)
+        want = np.where(flip[:, None, None, None], want[:, :, ::-1], want)
+        want = np.where(rot[:, None, None, None], want[:, ::-1, ::-1], want)
+        if got.dtype != torch.float32 or not torch.equal(got.cpu(), torch.from_numpy(want)):
+            raise AssertionError(f"DeviceCache gather of {idx.tolist()} (flip "
+                                 f"{flip.tolist()}, rot {rot.tolist()}) differs from numpy's")
+        flips, rots = flips + int(flip.sum()), rots + int(rot.sum())
+    ms = None
+    if torch.device(device).type == "cuda":
+        idx, flip, rot = next(cache.index_stream(batch, seed=SEED + 1, augment=True))
+        ms = time_ms(lambda: cache.gather(idx, flip=flip, rot=rot), 10)
+    print(f"DeviceCache: {n} uint8 frames {height}x{width} ({cache.nbytes() / 1e6:.1f} MB) "
+          f"on {device}; {steps} gathers of {batch} with {flips} mirrors and {rots} rot180s "
+          f"bit-equal to numpy's; a gather of {batch} with its bits "
+          + (f"{ms:.3f} ms (CUDA events)" if ms is not None else "not timed") + f" [{smi}]")
+    return {"nbytes": cache.nbytes(), "ms": ms}
+
 
 def reset_counts() -> None:
     fused_tail.launches = bilinear_sample.launches = bilinear_sample.backward_launches = 0
@@ -2285,7 +2579,23 @@ def main() -> None:
         if (depth_counts["smoothness_fwd"], depth_counts["smoothness_bwd"]) != want:
             raise AssertionError(f"config-2 training launched smoothness {depth_counts}, "
                                  f"not {want} (forward, backward)")
-        stamp("config-2 training")
+        # a main path: config 2's checkpoint served from its directory, counts inside
+        c2_served = phase_depth_checkpoint_serving("cuda", c2["checkpoint"], smi=info["smi"])
+        want = {k: 0 for k in c2_served["counts"]}
+        want["fused_tail"] = c2_served["batches"]
+        if c2_served["counts"] != want:
+            raise AssertionError(f"depth serving from a checkpoint launched "
+                                 f"{c2_served['counts']}, not {want}")
+        stamp("config-2 training and checkpoint serving")
+
+        # a main path: depth_only --turbo colon, counts inside
+        c2t = phase_depth_only_turbo("cuda", dataset, smi=info["smi"])
+        want = {k: 0 for k in c2t["counts"]}
+        want["smoothness_fwd"] = n_fwd * C2_STEPS + SMOOTH_PER_VAL * c2t["validations"]
+        want["smoothness_bwd"] = n_bwd * C2_STEPS
+        if c2t["counts"] != want:
+            raise AssertionError(f"depth_only --turbo launched {c2t['counts']}, not {want}")
+        stamp("depth_only --turbo training and serving")
 
         # two main paths: split_training's phases, each between its own count resets
         split = phase_split_training("cuda", os.path.join(tmp, "split"), smi=info["smi"])
@@ -2367,6 +2677,25 @@ def main() -> None:
         raise AssertionError(f"turbo serving launched {turbo_counts}")
     stamp("turbo parity and serving")
 
+    with tempfile.TemporaryDirectory() as tmp:
+        dist = phase_distill("cuda", tmp, smi=info["smi"])  # a main path, counts inside
+    want = {k: 0 for k in dist["counts"]}
+    want["fused_tail"] = (TAIL_PER_DISTILL_STEP * DISTILL_STEPS
+                          + TAIL_PER_DISTILL_VAL * dist["validations"])
+    if dist["counts"] != want:
+        raise AssertionError(f"distillation launched {dist['counts']}, not {want}")
+    stamp("distillation")
+    phase_distill_parity("cuda", info["smi"])
+    dtimes = phase_distill_times("cuda", info["smi"])
+    stamp("distillation parity and times")
+    reset_counts()  # a main path: depth serving through the module forward
+    phase_serving(variables, "cuda", use_fast=False)
+    module_counts = read_counts()
+    if any(module_counts.values()):
+        raise AssertionError(f"module-forward serving launched {module_counts}")
+    phase_device_cache("cuda", info["smi"])
+    stamp("module serving and DeviceCache")
+
     kernels = [{
         "name": "fused_tail", "route": "cuda",
         "source": "tf_depth_estimation_torch/csrc/fused_tail.cu",
@@ -2377,6 +2706,11 @@ def main() -> None:
         "library_ms": None,  # no single PyTorch call computes the same function
         # the native chain of the same layers (cuDNN, several calls): a yardstick
         "native_chain_ms": main_row["native_ms"],
+        # the other main paths' launches: 5 distill steps and 2 validations (the teacher),
+        # and depth serving from config 2's checkpoint directory
+        "distill_launches": dist["counts"]["fused_tail"],
+        "checkpoint_serving_launches": c2_served["counts"]["fused_tail"],
+        "distill_step_ms": dtimes["step"], "distill_teacher_ms": dtimes["teacher"],
     }, {
         # forward and backward of a config-4 step's 12 warps (B=10, 224x480 down to 28x60;
         # dcoords on the 8 that need them) in one group call; launches: forward + backward
@@ -2410,6 +2744,9 @@ def main() -> None:
         "per_map_loop_ms": mrow["loop_fwdbwd"], "device_ms": mrow["device_ms"],
         "bound_ms": mrow["bound_fwd"] + mrow["bound_bwd"], "bound_by": mrow["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the same function
+        # forward + backward in the depth_only --turbo colon run (5 steps, 2 validations)
+        "depth_only_turbo_launches": (c2t["counts"]["smoothness_fwd"]
+                                      + c2t["counts"]["smoothness_bwd"]),
     }, {
         # forward and backward of phase 2's group of a step (4 pairs, B=1, 192x256 down to
         # 24x32, delta 2); launches: forward + backward in both phases' runs;

@@ -26,6 +26,7 @@ from tf_depth_estimation_torch.train.experiments import depth_only
 from tf_depth_estimation_torch.train.state import create_train_state
 from tf_depth_estimation_torch.train.steps import make_depth_only_step, make_depth_only_val_step
 from tf_depth_estimation_torch.utils.npz import _flatten
+from torch_fixtures import drop_tmp_path  # noqa: F401 (autouse)
 
 H, W, B, LR = 64, 96, 2, 2e-4
 # the limits of tests/test_pallas.py:69 for the smoothness kernel: value rtol 1e-5,
@@ -273,9 +274,17 @@ def test_validation_without_a_val_split_gives_none(dataset, tmp_path):
     assert val_fn(None) is None and val_fn(None) is None
 
 
-def test_cli_refuses_turbo(tmp_path):
+def test_cli_takes_turbo_presets(tmp_path):
+    """``--turbo colon`` is accepted."""
+    argv = ["--dataset_dir", str(tmp_path), "--turbo", "colon"]
+    assert depth_only.parse_args(argv).turbo == "colon"
+
+
+def test_cli_refuses_turbo(tmp_path, capsys):
+    """An unknown ``--turbo`` preset is refused with ``TurboVariant.by_name``'s error."""
     with pytest.raises(SystemExit):
-        depth_only.parse_args(["--dataset_dir", str(tmp_path), "--turbo", "colon"])
+        depth_only.parse_args(["--dataset_dir", str(tmp_path), "--turbo", "colossal"])
+    assert "unknown turbo variant 'colossal'" in capsys.readouterr().err
 
 
 # ---- on the card -----------------------------------------------------------------------

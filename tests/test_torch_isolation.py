@@ -3,8 +3,10 @@ machine has none of them. One child process per main path imports every port mod
 drives the path on the CPU through chip_smoke.py: serving, one training step of config 4,
 one of config 2 with a validation, split_training's two phases, one step of config 3 with
 the eval harness's two nets, pair serving of the full-resolution and the truncated
-DepthPoseNet, the nine TurboDepthNet presets' folded forward and turbo serving, and the
-tensor-core probes' plain versions (the probes' entry points refuse to run without a card).
+DepthPoseNet, the nine TurboDepthNet presets' folded forward and turbo serving, the
+tensor-core probes' plain versions (the probes' entry points refuse to run without a card),
+distillation with its step parity and the device cache, and ``depth_only --turbo`` with
+depth serving from a checkpoint directory and through the module forward.
 
 The children run beside the other pytest workers, so each keeps PyTorch to two threads:
 one child with every path and PyTorch's default of a thread per core took ~4x its time
@@ -103,6 +105,33 @@ served = chip_smoke.phase_turbo_serving("cpu", height=64, width=96, batch=8, ben
 assert sorted(worst) == sorted(chip_smoke.TurboVariant.PRESETS) and served["frames"] == 14
 assert not any(chip_smoke.read_counts().values()), chip_smoke.read_counts()
 """,
+    # the teacher's fused tail is its plain version on the CPU: no launch
+    "distill": r"""
+with tempfile.TemporaryDirectory() as tmp:
+    dist = chip_smoke.phase_distill("cpu", tmp, height=64, width=96, batch=2, steps=2,
+                                    val_check=1, variant="small", dtype="float32")
+assert dist["validations"] == 2 and dist["served"] == 3 and not any(
+    dist["counts"].values()), dist
+chip_smoke.phase_distill_parity("cpu", height=64, width=96, batch=2, variant="small")
+cache = chip_smoke.phase_device_cache("cpu", n=6, height=16, width=24, batch=4)
+assert cache["nbytes"] == 6 * 16 * 24 * 3 and cache["ms"] is None, cache
+""",
+    "depth_only_turbo": r"""
+variables, _ = chip_smoke.load_variables_npz(chip_smoke.TEACHER)
+with tempfile.TemporaryDirectory() as tmp:
+    dataset = chip_smoke.write_dataset(tmp, batch=2, read_hw=(48, 144))
+    c2t = chip_smoke.phase_depth_only_turbo("cpu", dataset, height=48, width=144, batch=2,
+                                            steps=2, val_check=1, dtype="float32")
+    depth = chip_smoke.phase_depth_only("cpu", dataset, height=48, width=144, batch=2,
+                                        steps=1, val_check=1, dtype="float32")
+    served = chip_smoke.phase_depth_checkpoint_serving(
+        "cpu", depth["checkpoint"], height=48, width=144, batch=2, n=3, dtype="float32")
+module = chip_smoke.phase_serving(variables, "cpu", height=64, width=96, batch=8,
+                                  use_fast=False)
+assert c2t["validations"] == 2 and c2t["served"] == 3 and served["batches"] == 2, (c2t,
+                                                                                 served)
+assert module["frames"] == 14 and not any(c2t["counts"].values()), c2t
+""",
     # on the CPU the wrappers run their plain versions; the probes have no CPU path
     "dot_probes": r"""
 from tf_depth_estimation_torch.tools import (dot_variants, probe_int8_dot, probe_int8_dot2,
@@ -163,7 +192,10 @@ def test_every_port_module_is_imported_by_the_child():
             "tf_depth_estimation_torch.ops.dot_loop",
             "tf_depth_estimation_torch.ops.dot_grid",
             "tf_depth_estimation_torch.tools.probe_int8_dot",
-            "tf_depth_estimation_torch.tools.probe_int8_dot2"} <= names
+            "tf_depth_estimation_torch.tools.probe_int8_dot2",
+            "tf_depth_estimation_torch.train.distill",
+            "tf_depth_estimation_torch.train.experiments.distill_turbo",
+            "tf_depth_estimation_torch.data.device_cache"} <= names
 
 
 def test_no_port_file_names_jax_in_an_import():

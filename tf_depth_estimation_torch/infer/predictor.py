@@ -23,7 +23,7 @@ from tf_depth_estimation_torch.infer.fast import fold_weights, folded_forward
 from tf_depth_estimation_torch.infer.fast_pose import fold_depth_pose, folded_depth_pose_forward
 from tf_depth_estimation_torch.infer.fast_turbo import fold_turbo, folded_turbo_forward
 from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
-from tf_depth_estimation_torch.models.dispnet import DispNetVariant
+from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
 from tf_depth_estimation_torch.models.turbo import TurboVariant
 from tf_depth_estimation_torch.weights import turbo_from_variables, variables_to_state_dict
 
@@ -140,29 +140,45 @@ class _SingleImagePredictor:
 
 
 class DepthPredictor(_SingleImagePredictor):
-    """Single-image disparity inference with depth4 DispNet (ref ``batch_prediction.py``).
+    """Single-image disparity inference with DispNet (ref ``batch_prediction.py``).
 
     ``params`` / ``batch_stats`` are the JAX variables' collections (numpy trees, e.g.
-    from ``utils.npz.load_variables_npz``). The forward is ``infer/fast.py`` with BN
-    folded once here, and the decoder tail runs as one CUDA kernel (``ops/fused_tail.py``).
+    from ``utils.npz.load_variables_npz``). For depth4 with batch statistics and H, W
+    divisible by 4 the forward is ``infer/fast.py`` with BN folded once here, its decoder
+    tail one CUDA kernel (``ops/fused_tail.py``); ``use_fast=None`` (the default) takes it
+    there, ``False`` forces the module's eval forward in ``dtype``, and ``True`` raises
+    where it cannot serve, as in the JAX package. depth10_flow (a flow decoder) is served
+    by the module forward. ``uses_fast_path`` says which forward runs.
     """
 
-    def __init__(self, params, batch_stats, *, height: int = 224, width: int = 224,
+    def __init__(self, params, batch_stats=None, *, height: int = 224, width: int = 224,
                  variant: Optional[DispNetVariant] = None, batch_size: int = 32,
-                 dtype: torch.dtype = torch.bfloat16,
+                 dtype: torch.dtype = torch.bfloat16, use_fast: Optional[bool] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.height, self.width, self.batch_size = height, width, batch_size
         self.device = torch.device(device)
         v = variant or DispNetVariant.depth4()
-        folded = fold_weights({"params": params, "batch_stats": batch_stats},
-                              dtype=dtype, device=self.device)
-
-        @torch.inference_mode()
-        def fwd(x: torch.Tensor) -> torch.Tensor:
-            return folded_forward(folded, x, disp_scaling=v.disp_scaling,
-                                  min_disp=v.min_disp)[0][..., 0]
-
-        self._fwd = fwd
+        variables = {"params": params, "batch_stats": batch_stats or {}}
+        # every ported DispNet variant has batch norm and sigmoid heads; the folded
+        # forward has no flow decoder
+        if v.flow_decoder and use_fast:
+            raise ValueError("use_fast=True requires a BN single-decoder sigmoid-head "
+                             f"variant, not {v.name}")
+        self.uses_fast_path = not v.flow_decoder and _resolve_use_fast(
+            use_fast, batch_stats, height, width)
+        if self.uses_fast_path:
+            folded = fold_weights(variables, dtype=dtype, device=self.device)
+            forward = lambda x: folded_forward(folded, x, disp_scaling=v.disp_scaling,
+                                               min_disp=v.min_disp)[0][..., 0]
+        else:
+            if not batch_stats:
+                raise ValueError(f"DispNet {v.name} has batch norm: its eval forward "
+                                 f"needs batch_stats")
+            model = DispNet(v, dtype=dtype)
+            model.load_state_dict(variables_to_state_dict(variables), strict=True)
+            model = model.to(self.device).eval()
+            forward = lambda x: model(x.permute(0, 3, 1, 2).float())[0][:, 0]
+        self._fwd = torch.inference_mode()(forward)
 
 
 class TurboPredictor(_SingleImagePredictor):

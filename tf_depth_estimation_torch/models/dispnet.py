@@ -139,3 +139,8 @@ class DispNet(nn.Module):
             return disps
         return disps + self._decode(self.flow_decoder, "_opt", skips, hw, 1.0, 0.0,
                                     sigmoid=False)
+
+    def forward_nhwc(self, image: torch.Tensor) -> List[torch.Tensor]:
+        """``forward`` in the layout the losses use: image [B, H, W, in_channels], the
+        outputs [B, h, w, c]."""
+        return [o.permute(0, 2, 3, 1) for o in self(image.permute(0, 3, 1, 2))]

@@ -226,3 +226,8 @@ class TurboDepthNet(nn.Module):
             f"turbo-{v.name}: need >= {self.level3 + 2} encoder stages for the 1/8 head")
         return [d1, head(1, "disp2", p // 2), head(self.level3, "disp3", 1),
                 head(self.level3 + 1, "disp4", 1)]
+
+    def forward_nhwc(self, image: torch.Tensor) -> List[torch.Tensor]:
+        """The pyramid; ``forward`` already takes and returns NHWC, the layout the losses
+        use (``DispNet.forward_nhwc`` answers the same call)."""
+        return self(image)

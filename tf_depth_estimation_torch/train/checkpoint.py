@@ -7,15 +7,17 @@ JAX package's ``load_variables_npz`` reads), stored rather than deflated, and
 names the model, as the JAX package's named checkpoint groups do
 (``train/checkpoint.py``): ``model`` by default, and ``model_pairdepth`` and
 ``model_singledepth`` for split_training's two phases (``split_training.py:147,338``).
-The newest ten steps of a group are kept, as the JAX package's manager keeps. The JAX
-package's orbax directories are not ported.
+The newest ten steps of a group are kept, as the JAX package's manager keeps.
+``load_latest_variables(directory, group)`` reads the newest step's weights alone, for the
+distillation teacher and the serving CLI; it needs no ``.opt.pt``. The JAX package's orbax
+directories are not ported.
 """
 from __future__ import annotations
 
 import glob
 import os
 import re
-from typing import List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -24,6 +26,24 @@ from tf_depth_estimation_torch.utils.npz import load_variables_npz, save_variabl
 
 
 MAX_TO_KEEP = 10
+
+
+def _steps(directory: str, group: str) -> List[int]:
+    found = (re.fullmatch(rf"{re.escape(group)}-(\d+)\.npz", os.path.basename(p))
+             for p in glob.glob(os.path.join(directory, f"{group}-*.npz")))
+    return sorted(int(m.group(1)) for m in found if m)
+
+
+def load_latest_variables(directory: str, group: str = "model"
+                          ) -> Tuple[Dict[str, Any], int]:
+    """``(variables, step)`` of the newest ``<group>-<step>.npz`` in ``directory``, the
+    weights alone; raises ``FileNotFoundError`` naming the directory and group when there
+    is none."""
+    steps = _steps(os.path.abspath(directory), group)
+    if not steps:
+        raise FileNotFoundError(f"no {group}-<step>.npz checkpoint in {directory}")
+    variables, _ = load_variables_npz(os.path.join(directory, f"{group}-{steps[-1]}.npz"))
+    return variables, steps[-1]
 
 
 class CheckpointManager:
@@ -36,9 +56,7 @@ class CheckpointManager:
         return os.path.join(self.directory, f"{self.group}-{step}.npz")
 
     def steps(self) -> List[int]:
-        found = (re.fullmatch(rf"{re.escape(self.group)}-(\d+)\.npz", os.path.basename(p))
-                 for p in glob.glob(os.path.join(self.directory, f"{self.group}-*.npz")))
-        return sorted(int(m.group(1)) for m in found if m)
+        return _steps(self.directory, self.group)
 
     def latest_step(self) -> Optional[int]:
         steps = self.steps()

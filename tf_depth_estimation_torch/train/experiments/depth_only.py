@@ -3,8 +3,11 @@
 depth4 DispNet (sigmoid * 4 heads) on the target image of 240x720 colon pairs; L1 depth
 and second-order smoothness per scale, and every ``--validation_check`` steps one
 validation batch through the eval forward with the reference's si-log-RMSE (ref
-``train_depth_only.py:353-377``). The smoothness terms run the port's CUDA kernels on the
-GPU. ::
+``train_depth_only.py:353-377``). ``--turbo <preset>`` trains a ``TurboDepthNet`` of that
+preset instead, with the same 4-scale loss pyramid ('colon' fits 240x720, divisibility
+16); its checkpoint group stays ``model``, and ``infer/cli.py --mode turbo
+--checkpoint_group model`` serves it. The smoothness terms run the port's CUDA kernels on
+the GPU. ::
 
     python -m tf_depth_estimation_torch.train.experiments.depth_only \\
         --dataset_dir D --checkpoint_dir C [--device cpu] [--dtype float32]
@@ -21,6 +24,7 @@ import torch
 from tf_depth_estimation_torch.data.colon import PairDepthDataset
 from tf_depth_estimation_torch.losses.config import LossWeights
 from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
+from tf_depth_estimation_torch.models.turbo import TurboDepthNet, TurboVariant
 from tf_depth_estimation_torch.train.experiments.common import (
     base_parser,
     compute_dtype,
@@ -37,14 +41,16 @@ def parse_args(argv=None):
     p = base_parser(__doc__, batch_size=10, max_steps=20000)
     p.add_argument("--image_height", type=int, default=240)
     p.add_argument("--image_width", type=int, default=720)
-    p.add_argument("--turbo", default="", help="not ported: TurboDepthNet is ported for "
-                                               "serving; its training comes with the "
-                                               "distillation slice")
+    p.add_argument("--turbo", default="",
+                   help="train a TurboDepthNet of this preset (TurboVariant.PRESETS) "
+                        "instead of depth4 DispNet; 'colon' fits 240x720")
     args = parse(p, argv)
     if args.turbo:
-        p.error("--turbo is not ported to tf_depth_estimation_torch yet: TurboDepthNet is "
-                "ported for serving (infer/cli.py --mode turbo), and its training comes "
-                "with the distillation slice")
+        try:
+            TurboVariant.by_name(args.turbo).check_size(args.image_height,
+                                                        args.image_width)
+        except ValueError as e:
+            p.error(str(e))
     return args
 
 
@@ -79,9 +85,13 @@ def main(argv=None):
     w = dataclasses.replace(LossWeights.depth_only(), height=args.image_height,
                             width=args.image_width, max_steps=args.max_steps)
     batches = _loader(args, "train", args.batch_size)
-    model = DispNet(DispNetVariant.depth4(),
-                    generator=torch.Generator().manual_seed(args.seed),
-                    dtype=compute_dtype(args)).to(args.device)
+    g = torch.Generator().manual_seed(args.seed)
+    if args.turbo:
+        model = TurboDepthNet(TurboVariant.by_name(args.turbo), generator=g,
+                              dtype=compute_dtype(args))
+    else:
+        model = DispNet(DispNetVariant.depth4(), generator=g, dtype=compute_dtype(args))
+    model = model.to(args.device)
     state = create_train_state(model, learning_rate=args.learning_rate, beta1=args.beta1)
     mgr, logger, state = setup_run(args, state)
     state, last = run_training(

@@ -8,8 +8,10 @@ device time summed by kernel and by kind of work.
 ``depth_only`` (config 2: depth4, 240x720, batch 10), ``depth_then_cam`` (config 3: the
 full-resolution DepthPoseNet on a DeMoN pair, 192x256, batch 16), ``split_pair``
 (split_training's phase 1: the truncated DepthPoseNet on a DeMoN pair, 192x256, batch 1)
-or ``split_single`` (its phase 2: depth4 DispNet over [coarse depth | image], 192x256,
-batch 1), bf16, as the CLIs train. ``--sampler plain`` (the warps of configs 3 and 4),
+``split_single`` (its phase 2: depth4 DispNet over [coarse depth | image], 192x256,
+batch 1), ``depth_only_turbo`` (config 2T: turbo-colon on config 2's batch) or ``distill``
+(turbo-base learning a seeded depth4 teacher's pyramid through the teacher's folded
+forward, 576x384, batch 8), bf16, as the CLIs train. ``--sampler plain`` (the warps of configs 3 and 4),
 ``--smoothness plain`` and ``--sig plain`` route those terms to their plain versions for
 the measurement, as a yardstick for the kernels (the port itself always runs them). The
 batch is synthetic (``data/synthetic.py``'s scenes, on the device before the window),
@@ -35,10 +37,13 @@ from tf_depth_estimation_torch.losses import pipelines
 from tf_depth_estimation_torch.losses.config import LossWeights
 from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
 from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
+from tf_depth_estimation_torch.models.turbo import TurboDepthNet, TurboVariant
 from tf_depth_estimation_torch.ops.sig_l2 import sig_l2_plain_group
 from tf_depth_estimation_torch.ops.smoothness import smoothness_plain_group
+from tf_depth_estimation_torch.train.distill import folded_teacher, make_distill_step
 from tf_depth_estimation_torch.train.experiments.split_training import single_batches
 from tf_depth_estimation_torch.train.state import create_train_state
+from tf_depth_estimation_torch.weights import state_dict_to_variables
 from tf_depth_estimation_torch.train.steps import (
     make_depth_only_step,
     make_depth_then_cam_step,
@@ -49,7 +54,7 @@ from tf_depth_estimation_torch.train.steps import (
 
 # kernel-name fragments -> kind of work, first match wins
 KINDS = (("bilinear_group", "sampler kernels"),
-         ("smooth_", "smoothness kernels"),
+         ("smooth_", "smoothness kernels"), ("tail_", "fused tail kernel"),
          ("sig_", "sig kernels"), ("conv", "convolution"),
          ("gemm", "convolution"), ("xmma", "convolution"), ("cudnn", "convolution"),
          ("wgrad", "convolution"), ("dgrad", "convolution"), ("multi_tensor", "adam"),
@@ -124,11 +129,11 @@ def _weights(table, height, width, sampler: str) -> LossWeights:
                                **({"sampler": "xla"} if sampler == "plain" else {}))
 
 
-def _dispnet_setup(variant, table, make_step, default_batch=10):
+def _dispnet_setup(variant, table, make_step, default_batch=10, net=DispNet):
     def setup(batch, height, width, device, sampler):
         w = _weights(table, height, width, sampler)
-        model = DispNet(variant(), generator=torch.Generator().manual_seed(0),
-                        dtype=torch.bfloat16).to(device)
+        model = net(variant(), generator=torch.Generator().manual_seed(0),
+                    dtype=torch.bfloat16).to(device)
         data = pair_batch(batch or default_batch, w.height, w.width, 0, device)
         return w, create_train_state(model), make_step(w), data
     return setup
@@ -158,6 +163,20 @@ def _split_setup(phase: str):
     return setup
 
 
+def _distill_setup(batch, height, width, device, sampler):
+    height, width = height or 384, width or 576
+    teacher = DispNet(DispNetVariant.depth4(), generator=torch.Generator().manual_seed(1))
+    teacher = folded_teacher(state_dict_to_variables(teacher.state_dict()),
+                             dtype=torch.bfloat16, device=device)
+    model = TurboDepthNet(TurboVariant.base(), generator=torch.Generator().manual_seed(0),
+                          dtype=torch.bfloat16).to(device)
+    images = torch.from_numpy(np.random.RandomState(0).uniform(
+        0, 255, (batch or 8, height, width, 3)).astype(np.float32)).to(device)
+    step = make_distill_step(teacher)
+    w = dataclasses.replace(LossWeights.depth_only(), height=height, width=width)
+    return w, create_train_state(model), lambda st, d: step(st, d["image"]), {"image": images}
+
+
 # config -> setup(batch, height, width, device, sampler) -> (LossWeights, TrainState, step,
 # batch); a batch, height or width of None takes the configuration's own
 CONFIGS = {
@@ -168,6 +187,9 @@ CONFIGS = {
     "depth_then_cam": _depth_then_cam_setup,
     "split_pair": _split_setup("pair"),
     "split_single": _split_setup("single"),
+    "depth_only_turbo": _dispnet_setup(TurboVariant.colon, LossWeights.depth_only,
+                                       make_depth_only_step, net=TurboDepthNet),
+    "distill": _distill_setup,
 }
 
 

@@ -42,13 +42,14 @@ def _apply(state: TrainState, total: torch.Tensor, comps: dict):
 
 
 def make_depth_only_step(w: LossWeights):
-    """BASELINE config 2 (``train_depth_only.py``): depth4 DispNet on the target image;
-    ``depth_only_loss``. Batch keys: ``tgt_image`` [B, H, W, 3], ``label`` [B, H, W, 1]."""
+    """BASELINE config 2 (``train_depth_only.py``): depth4 DispNet, or a TurboDepthNet
+    (``depth_only --turbo``), on the target image; ``depth_only_loss``. Batch keys:
+    ``tgt_image`` [B, H, W, 3], ``label`` [B, H, W, 1]."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state.model.train()
-        outs = state.model(batch["tgt_image"].permute(0, 3, 1, 2))
-        total, comps = depth_only_loss([_nhwc(d) for d in outs], batch["label"], w)
+        outs = state.model.forward_nhwc(batch["tgt_image"])
+        total, comps = depth_only_loss(outs, batch["label"], w)
         return _apply(state, total, comps)
 
     return step
@@ -61,8 +62,8 @@ def make_depth_only_val_step(w: LossWeights):
     def val_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state.model.eval()
         with torch.no_grad():
-            outs = state.model(batch["tgt_image"].permute(0, 3, 1, 2))
-            _, comps = depth_only_val_loss([_nhwc(d) for d in outs], batch["label"], w)
+            outs = state.model.forward_nhwc(batch["tgt_image"])
+            _, comps = depth_only_val_loss(outs, batch["label"], w)
         return comps
 
     return val_step
@@ -94,10 +95,9 @@ def make_optflow_combine_step(w: LossWeights):
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state.model.train()
-        outs = state.model(batch["tgt_image"].permute(0, 3, 1, 2))
+        outs = state.model.forward_nhwc(batch["tgt_image"])
         n = w.num_scales
-        depths = [_nhwc(d) for d in outs[:n]]
-        flows = [_nhwc(f) for f in outs[n:]]
+        depths, flows = outs[:n], outs[n:]
         total, comps = optflow_combine_loss(
             batch["tgt_image"], batch["src_image"], depths, [f[..., 0:1] for f in flows],
             [f[..., 1:2] for f in flows], batch["label"], batch["tgt2src_projs"][:, 0],
@@ -139,9 +139,8 @@ def make_single_depth_step(w: LossWeights):
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state.model.train()
-        outs = state.model(batch["input"].permute(0, 3, 1, 2))
-        total, comps = single_depth_loss([_nhwc(d) for d in outs], batch["label"],
-                                         state.step, w)
+        outs = state.model.forward_nhwc(batch["input"])
+        total, comps = single_depth_loss(outs, batch["label"], state.step, w)
         return _apply(state, total, comps)
 
     return step
