@@ -7,8 +7,10 @@ depth with in-loop validation) at 240x720, train both phases of split_training
 (the full-resolution DepthPoseNet, self-supervised depth and pose) at 192x256, run the eval
 harness's two nets, serve DepthPoseNet pairs, run the int8 / bf16 tensor-core probes,
 serve TurboDepthNet, train TurboDepthNet on config 2 (``depth_only --turbo``) and by
-distillation from the depth4 teacher, serve from checkpoint directories and gather from a
-device-resident corpus.
+distillation from the depth4 teacher, serve from checkpoint directories, gather from a
+device-resident corpus, and train the DeMoN-stream families at 192x256: config 5 (the
+truncated DepthPoseNet, ``on_demon``) and the symmetric L/R family (``LRNet``,
+``depth_then_cam_lr`` with and without ``--gt_pose``).
 
     python3 chip_smoke.py
 
@@ -176,10 +178,41 @@ Phases, each raising on failure:
  31. serving, a main path: ``DepthPredictor(use_fast=False)``, the bf16 module forward,
      answers requests of 8, 5 and 1 frames at 576x384 within phase 5's limits, with no
      launch; then a ``DeviceCache`` of 64 uint8 frames at 576x384 (42 MB) gathered at B=8
-     with mirror and rot180 bits, bit-equal to numpy's gather, and the gather timed.
+     with mirror and rot180 bits, bit-equal to numpy's gather, and the gather timed;
+ 32. kernel vs plain: ``bilinear_sample_group`` on an L/R step's 16 samplings (B=16,
+     192x256 down to 24x32; at each scale both images, C=3, and both inverse depths, C=1,
+     at the coords of real angle-axis warps; dcoords on all 16, dimgs on the 8 C=1
+     members): one launch each way, out and wmask bit-equal, dcoords and dimgs within
+     TOL_DCOORDS of autograd of the plain version, dcoords the same bits twice; then the
+     group both ways and the plain version, in turns (each coords tensor shared by two
+     members, as in a step), with the group's device time where its profiler session kept
+     all its kernels, beside the bound;
+ 33. training, a main path: config 5 (``train/experiments/on_demon.py``, the truncated
+     DepthPoseNet, bf16, batch 16, 192x256) for 5 steps through the CLI's ``train``, the
+     launch counts read before each batch is taken (each step one forward and one backward
+     smoothness launch for disp3 and disp4, and nothing else); every loss component
+     finite; ``model-5.npz`` read back into the truncated DepthPoseNet and served by
+     ``PairPredictor`` as in phase 21 (no launch);
+ 34. training, two main paths: ``train/experiments/depth_then_cam_lr.py`` (``LRNet``, bf16,
+     batch 16, 192x256) for 5 steps in each mode, counts per step as in phase 33: full
+     mode one forward and one backward launch of the sampler (16 samplings) and of
+     smoothness (16 maps); ``--gt_pose`` the same (8 maps) and one of sig each way (the
+     5-delta term at 192x256); no plain sampling, nothing else; every loss component
+     finite; each checkpoint read back into ``LRNet`` with a finite eval forward;
+ 35. step parity: one f32 step of each L/R mode with the kernels against one with the plain
+     sampler, smoothness and sig terms from one init and batch (phase 9's limits), and
+     the bf16 total against the f32 one;
+ 36. times: ms/step of the bf16 config-5, ``lr_full`` and ``lr_gt`` steps with the kernels,
+     with every term plain and (L/R) with the plain sampler and the loss kernels, in
+     turns of 5 steps (the ways in order, then reversed), the L/R steps' share of
+     sampled pixels outside their source image; launches, device time by kind and busy
+     share a step of each from ``train/profile_step.py``, kernels and plain; a device
+     time whose profiler session lost some of its kernels is not measured and left out
+     of the ``kernels`` line.
 The GPU machine has no ``h5py``, so the smoke cannot write the DeMoN HDF5 files that the
-split_training and depth_then_cam CLIs read (``data/demon.py``): phases 15 and 19 feed the
-CLIs' train functions batches of synthetic scenes, augmented and preprocessed by
+split_training, depth_then_cam, on_demon and depth_then_cam_lr CLIs read
+(``data/demon.py``): phases 15, 19, 33 and 34 feed the CLIs' train functions batches of
+synthetic scenes, augmented and preprocessed by
 ``data/demon.py``'s own ``augment`` and ``preprocess``; the CPU tests run the CLIs on an
 HDF5 file.
 The line before the last is one JSON object describing each kernel; the last is
@@ -191,6 +224,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -224,6 +258,7 @@ from tf_depth_estimation_torch.infer.predictor import (
     PairPredictor,
     TurboPredictor,
 )
+from tf_depth_estimation_torch.losses import pipelines
 from tf_depth_estimation_torch.losses.config import LossWeights
 from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
 from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
@@ -272,8 +307,10 @@ from tf_depth_estimation_torch.train.distill import folded_teacher, make_distill
 from tf_depth_estimation_torch.train.experiments import (
     depth_only,
     depth_then_cam,
+    depth_then_cam_lr,
     distill_turbo,
     eval_harness,
+    on_demon,
     optflow_combine,
     split_training,
 )
@@ -290,6 +327,7 @@ from tf_depth_estimation_torch.utils.npz import load_variables_npz, save_variabl
 from tf_depth_estimation_torch.weights import (
     depth_pose_from_variables,
     dispnet_from_variables,
+    lrnet_from_variables,
     state_dict_to_variables,
     turbo_from_variables,
 )
@@ -411,6 +449,22 @@ TAIL_PER_DISTILL_STEP = TAIL_PER_DISTILL_VAL = 1
 TOL_DISTILL_LOSS = 1e-4
 # DeviceCache: a 64-frame uint8 corpus at 576x384 (42 MB)
 CACHE_FRAMES = 64
+# config 5 (train/experiments/on_demon.py defaults): the truncated DepthPoseNet on DeMoN
+# scenes at 192x256, batch 16, bf16; 5 steps. A step smooths disp3 and disp4 (scales 2 and
+# 3) in one group call, and launches nothing else of the package
+C5_HEIGHT, C5_WIDTH, C5_BATCH, C5_STEPS = 192, 256, 16, 5
+# the symmetric L/R family (train/experiments/depth_then_cam_lr.py defaults): LRNet on
+# DeMoN scenes at 192x256, batch 16, bf16; 5 steps of each mode. A step's 16 samplings (8
+# image warps with dcoords, 8 inverse-depth resamples with dcoords and dimgs) are one
+# sampler group call, its 1/d smoothness terms one group call (lr_full 16 maps, lr_gt 8),
+# and under --gt_pose its 5-delta sig term one call; no plain sampling
+LR_HEIGHT, LR_WIDTH, LR_BATCH, LR_STEPS = 192, 256, 16, 5
+LR_MODES = {"lr_full": False, "lr_gt": True}   # mode -> --gt_pose
+DEMON_PER_STEP = {"on_demon": {"smoothness_fwd": 1, "smoothness_bwd": 1},
+            "lr_full": {"smoothness_fwd": 1, "smoothness_bwd": 1, "bilinear_sample": 1,
+                        "bilinear_sample_bwd": 1},
+            "lr_gt": {"smoothness_fwd": 1, "smoothness_bwd": 1, "bilinear_sample": 1,
+                      "bilinear_sample_bwd": 1, "sig_fwd": 1, "sig_bwd": 1}}
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32, PEAK_BF16, PEAK_HBM = 67e12, 989e12, 3.35e12
 PEAK_INT8 = 1979e12
@@ -558,6 +612,19 @@ def phase_serving(variables: dict, device, height: int = HEIGHT, width: int = WI
     return {"frames": batch + 5 + 1}
 
 
+def kind_ms(prof: dict, kind: str, per_step: int = 2):
+    """``profile_step.profile``'s device ms a step of ``kind`` where its session kept the
+    kind's ``per_step`` launches a step, else None: ``torch.profiler`` loses some or all
+    kernel events of a few sessions a run."""
+    if prof["kind_launches"].get(kind, 0) != per_step:
+        return None
+    return prof["kinds"].get(kind, 0.0)
+
+
+def fmt_ms(ms, digits: int = 4) -> str:
+    return "not measured" if ms is None else f"{ms:.{digits}f} ms"
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -655,33 +722,41 @@ def sampler_cases(device) -> dict:
 SAMPLER_COUNTS = ("bilinear_sample", "bilinear_sample_bwd", "fused_fwd", "fused_bwd")
 
 
-def _distinct_leaves(tensors: list, grad: bool) -> tuple:
-    """(a copy of each distinct tensor of ``tensors`` (by address) as a leaf, the copy in
-    each place): warps of one image keep sharing it."""
+def _distinct_leaves(tensors: list, grads: list) -> tuple:
+    """(a copy of each distinct tensor of ``tensors`` (by address) as a leaf, needing a
+    gradient where any of its places' ``grads`` does, the copy in each place): warps of one
+    image keep sharing it."""
+    need = {}
+    for t, g in zip(tensors, grads):
+        need[t.data_ptr()] = need.get(t.data_ptr(), False) or g
     leaves, placed = {}, []
     for t in tensors:
         if t.data_ptr() not in leaves:
-            leaves[t.data_ptr()] = t.detach().clone().requires_grad_(grad)
+            leaves[t.data_ptr()] = t.detach().clone().requires_grad_(need[t.data_ptr()])
         placed.append(leaves[t.data_ptr()])
     return list(leaves.values()), placed
 
 
 def group_check(label: str, group, warps: list, want: tuple, smi: str,
                 dimgs: bool = False) -> dict:
-    """Hold ``group`` on ``warps`` [(imgs, coords, needs dcoords)] to the plain version
-    (``plain_group``) at seeded cotangents of the outputs: the launches of each group call
-    (``SAMPLER_COUNTS``) equal to ``want``, out and wmask bit-equal, dcoords (and, with
-    ``dimgs``, the images' gradients) within TOL_DCOORDS of autograd of the plain version,
+    """Hold ``group`` on ``warps`` [(imgs, coords, needs dcoords[, needs dimgs])] to the
+    plain version (``plain_group``) at seeded cotangents of the outputs: the launches of
+    each group call (``SAMPLER_COUNTS``) equal to ``want``, out and wmask bit-equal,
+    dcoords (and the images' gradients, of every member with ``dimgs``, else of the
+    members that ask for them) within TOL_DCOORDS of autograd of the plain version,
     dcoords the same bits in two runs. Returns the largest differences."""
     g = np.random.RandomState(SEED + 6)
-    douts = [torch.from_numpy(g.randn(*c.shape[:3], i.shape[3]).astype(np.float32))
-             .to(i.device) for i, c, _ in warps]
-    ks = [k for k, w in enumerate(warps) if w[2] or dimgs]
+    douts = [torch.from_numpy(g.randn(*w[1].shape[:3], w[0].shape[3]).astype(np.float32))
+             .to(w[0].device) for w in warps]
+    need_i = [dimgs or (len(w) > 3 and w[3]) for w in warps]
+    dimgs = any(need_i)
+    ks = [k for k, w in enumerate(warps) if w[2] or need_i[k]]
     runs = []
     for fn in (group, group, plain_group):
-        img_leaves, ims = _distinct_leaves([w[0] for w in warps], dimgs)
-        cs = [c.detach().clone().requires_grad_(need) for _, c, need in warps]
-        targets = [c for c in cs if c.requires_grad] + (img_leaves if dimgs else [])
+        img_leaves, ims = _distinct_leaves([w[0] for w in warps], need_i)
+        cs = [w[1].detach().clone().requires_grad_(w[2]) for w in warps]
+        targets = [c for c in cs if c.requires_grad] + [i for i in img_leaves
+                                                          if i.requires_grad]
         before = read_counts()
         outs, masks = fn(ims, cs)
         grads = torch.autograd.grad([outs[k] for k in ks], targets, [douts[k] for k in ks])
@@ -705,9 +780,9 @@ def group_check(label: str, group, warps: list, want: tuple, smi: str,
                                        msg=lambda m: f"{label} {what}: {m}")
         errs[what] = max([(a - r).abs().nan_to_num().max().item()
                           for a, r in zip(got, ref)] or [0.0])
-    px = sum(c.shape[0] * c.shape[1] * c.shape[2] for _, c, _ in warps)
+    px = sum(w[1].shape[0] * w[1].shape[1] * w[1].shape[2] for w in warps)
     print(f"kernel {label}: {len(warps)} warps ({px} target pixels, {n_c} with dcoords"
-          f"{', dimgs' if dimgs else ''}): launches {dict(zip(SAMPLER_COUNTS, want))}; out "
+          f"{f', {sum(need_i)} with dimgs' if dimgs else ''}): launches {dict(zip(SAMPLER_COUNTS, want))}; out "
           f"and wmask bit-equal to the plain version; dcoords abs err max "
           f"{errs['dcoords']:.3e}" + (f", dimgs {errs['dimgs']:.3e}" if dimgs else "")
           + f" vs autograd of the plain version (rtol {TOL_DCOORDS['rtol']:.0e}, atol "
@@ -864,8 +939,8 @@ def phase_sampler_times(device, smi: str) -> dict:
     row = sampler_units.time_unit(warps, sampler_units.ways("config 4"))
     sampler_units.report("config 4", warps, row, "bilinear_sample", smi)
     prof = profile_step.profile(steps=1, device=device, config="optflow_combine", top=0)
-    row.update(device_ms=prof["kinds"].get("sampler kernels", 0.0), profile=prof)
-    print(f"profile optflow_combine: sampler kernels {row['device_ms']:.4f} ms of device "
+    row.update(device_ms=kind_ms(prof, "sampler kernels"), profile=prof)
+    print(f"profile optflow_combine: sampler kernels {fmt_ms(row['device_ms'])} of device "
           f"time a step, of {prof['kernel_ms']:.2f} ms in {prof['launches']} launches "
           f"[{smi}]")
     return row
@@ -1158,9 +1233,10 @@ def phase_smooth_times(device, smi: str, prof: dict) -> dict:
               f"group {r['group_fwdbwd']:.4f} ms, per-map loop {r['loop_fwdbwd']:.4f} ms, "
               f"plain {r['plain_fwdbwd']:.4f} ms, bound {bf + bb:.4f} ms; turns "
               f"{_turns(r)} [{smi}]")
-    rows["optflow_combine"]["device_ms"] = prof["kinds"].get("smoothness kernels", 0.0)
-    print(f"profile optflow_combine: smoothness kernels {rows['optflow_combine']['device_ms']:.4f}"
-          f" ms of device time a step, of {prof['kernel_ms']:.2f} ms in "
+    rows["optflow_combine"]["device_ms"] = kind_ms(prof, "smoothness kernels")
+    print(f"profile optflow_combine: smoothness kernels "
+          f"{fmt_ms(rows['optflow_combine']['device_ms'])} of device time a step, of "
+          f"{prof['kernel_ms']:.2f} ms in "
           f"{prof['launches']} launches [{smi}]")
     return rows
 
@@ -1537,18 +1613,20 @@ def phase_split_times(device, smi: str) -> dict:
         for name in ("kernel", "plain"):
             prof = profile_step.profile(steps=1, device=device, config=config, sig=name,
                                         top=0)
-            sig_ms = prof["kinds"].get("sig kernels", 0.0)
+            sig_ms = kind_ms(prof, "sig kernels", 2 if name == "kernel" else 0)
             out[(config, name)].update(launches=prof["launches"],
                                        kernel_ms=prof["kernel_ms"], sig_ms=sig_ms)
             print(f"profile {config} sig={name}: {prof['launches']} launches, "
                   f"{prof['kernel_ms']:.2f} ms of device time a step, sig kernels "
-                  f"{sig_ms:.4f} ms [{smi}]")
+                  f"{fmt_ms(sig_ms)} [{smi}]")
     return out
 
 
-def euler_warp_coords(B: int, H: int, W: int, device, seed: int) -> torch.Tensor:
+def euler_warp_coords(B: int, H: int, W: int, device, seed: int,
+                      fmt: str = "euler") -> torch.Tensor:
     """The coords of config 3's warp: a seeded depth in [0.8, 2.5], an Euler pose of up
-    to 5 cm and 0.02 rad, DeMoN-like intrinsics, through ``fmt="euler"``."""
+    to 5 cm and 0.02 rad, DeMoN-like intrinsics, through ``fmt="euler"``; with
+    ``fmt="angleaxis"`` the L/R family's warp, the last three entries a rotation vector."""
     g = np.random.RandomState(seed)
     depth = torch.from_numpy(g.uniform(0.8, 2.5, (B, H, W)).astype(np.float32))
     pose = torch.from_numpy(np.concatenate([g.uniform(-0.05, 0.05, (B, 3)),
@@ -1558,7 +1636,7 @@ def euler_warp_coords(B: int, H: int, W: int, device, seed: int) -> torch.Tensor
     img = torch.zeros((B, H, W, 1), device=device)
     return projective_inverse_warp(img, depth.to(device), pose.to(device),
                                    K.expand(B, 3, 3).contiguous().to(device),
-                                   fmt="euler").coords
+                                   fmt=fmt).coords
 
 
 def fused_cases(device) -> dict:
@@ -1878,7 +1956,8 @@ def phase_depth_then_cam_times(device, smi: str) -> dict:
         prof = profile_step.profile(steps=1, device=device, config="depth_then_cam",
                                     sampler=name, top=0)
         out[name].update(launches=prof["launches"], kernel_ms=prof["kernel_ms"],
-                         sampler_ms=prof["kinds"].get("sampler kernels", 0.0))
+                         sampler_ms=kind_ms(prof, "sampler kernels",
+                                            2 if name == "kernel" else 0))
     return out
 
 
@@ -2489,6 +2568,318 @@ def phase_device_cache(device, smi: str = "", n: int = CACHE_FRAMES, height: int
     return {"nbytes": cache.nbytes(), "ms": ms}
 
 
+# ---- the DeMoN-stream families: config 5 and the symmetric L/R family ------------------
+
+def lr_warps(device) -> list:
+    """The 16 samplings of an L/R step as ``losses/pipelines.py:_lr_warps`` makes them
+    (B=16, 192x256 down to 24x32): at each scale the right image (C=3, [0, 255]) at the
+    left view's angle-axis warp coords, the left image at the right view's, and the right
+    and left views' inverse depths (C=1, [0.2, 2]) at the same coords; dcoords on all 16,
+    dimgs on the 8 inverse depths."""
+    g = np.random.RandomState(SEED + 40)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    warps = []
+    for s in range(4):
+        h, w = LR_HEIGHT >> s, LR_WIDTH >> s
+        left, right = (t(g.rand(LR_BATCH, h, w, 3) * 255) for _ in range(2))
+        inv_l, inv_r = (t(g.uniform(0.2, 2.0, (LR_BATCH, h, w, 1))) for _ in range(2))
+        c_l, c_r = (euler_warp_coords(LR_BATCH, h, w, device, SEED + 41 + 2 * s + k,
+                                      fmt="angleaxis").contiguous() for k in range(2))
+        warps += [(right, c_l, True, False), (left, c_r, True, False),
+                  (inv_r, c_l, True, True), (inv_l, c_r, True, True)]
+    return warps
+
+
+def lr_group_bound(warps: list) -> tuple:
+    """(forward ms, backward ms, "bytes" or "operations"): the least time an H100 SXM needs
+    for the L/R group, counted as ``tools/sampler_units.py:unit_bound`` counts a unit, each
+    input read once and each output written once: each distinct image and each distinct
+    coords tensor read once each way (two members share each coords tensor, as in
+    ``losses/pipelines.py:_lr_warps``), out and wmask forward, out's cotangent read and
+    each distinct coords tensor's dcoords and each C=1 image's dimgs written once backward;
+    ~(19 + 7 C) operations a target pixel forward, ~(39 + 8 C) backward."""
+    times = []
+    for backward in (False, True):
+        nbytes = ops = 0
+        seen = set()
+        for imgs, coords, _, dimgs in warps:
+            B, Hs, Ws, C = imgs.shape
+            n = coords.shape[0] * coords.shape[1] * coords.shape[2]
+            if imgs.data_ptr() not in seen:
+                seen.add(imgs.data_ptr())
+                nbytes += 4 * B * Hs * Ws * C * (2 if backward and dimgs else 1)
+            if coords.data_ptr() not in seen:
+                seen.add(coords.data_ptr())
+                nbytes += 4 * 2 * n * (2 if backward else 1)
+            nbytes += 4 * C * n if backward else 4 * (C + 1) * n
+            ops += ((39 + 8 * C) if backward else (19 + 7 * C)) * n
+        t_bytes, t_ops = nbytes / PEAK_HBM, ops / PEAK_F32
+        times.append((max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"))
+    (fwd, by_f), (bwd, by_b) = times
+    return fwd, bwd, by_b if bwd >= fwd else by_f
+
+
+def phase_lr_sampler(device, smi: str) -> dict:
+    """``bilinear_sample_group`` on an L/R step's 16 samplings, 8 with C=3 and 8 with C=1,
+    dimgs on the C=1 members (``group_check``): one launch each way, out and wmask
+    bit-equal, dcoords and dimgs within TOL_DCOORDS. Then the group's forward and
+    backward at seeded cotangents (dcoords on the 8 coords tensors, each shared by two
+    members as in a step; dimgs on the C=1 members) and the plain version's, in turns (the
+    ways in order, then reversed; CUDA events), the group's device time under
+    ``torch.profiler`` where the session kept all its kernels, beside the bound. Returns
+    the largest differences and the times."""
+    warps = lr_warps(device)
+    errs = group_check("bilinear_sample_group, an L/R step", bilinear_sample_group, warps,
+                       (1, 1, 0, 0), smi)
+    g = np.random.RandomState(SEED + 7)
+    douts = [torch.from_numpy(g.randn(*w[1].shape[:3], w[0].shape[3]).astype(np.float32))
+             .to(device) for w in warps]
+    imgs = [w[0].clone().requires_grad_(w[3]) for w in warps]
+    leaf = {}
+    coords = [leaf.setdefault(w[1].data_ptr(), w[1].clone().requires_grad_(True))
+              for w in warps]
+    wrt = list(leaf.values()) + [i for i in imgs if i.requires_grad]
+    ways = {"group": bilinear_sample_group, "plain": plain_group}
+
+    def both(name):
+        outs, _ = ways[name](imgs, coords)
+        return torch.autograd.grad(outs, wrt, douts)
+
+    order = list(ways)
+    times = {k: [] for k in ways}
+    for name in order + order[::-1]:
+        times[name].append(time_ms(lambda: both(name), 10))
+    out = dict(errs)
+    out.update({name: {"ms": sum(ts) / len(ts), "turns": ts} for name, ts in times.items()})
+    # the group's kernels, the dimgs buffer's zero fill and an add a shared coords tensor
+    want = 2 + 1 + (len(warps) - len(leaf))
+    sampler_units.spend_profiler_session(lambda: both("group"))
+    dev, n = sampler_units.device_ms(lambda: both("group"))
+    out["group"]["device_ms"] = dev if n == want else None
+    fwd, bwd, by = lr_group_bound(warps)
+    out.update(bound_ms=fwd + bwd, bound_by=by)
+    print(f"time sampler group, an L/R step (16 samplings, dcoords on 8 coords tensors, "
+          f"dimgs on 8), forward+backward: " + ", ".join(
+              f"{k} {out[k]['ms']:.4f} ms (turns {', '.join(f'{t:.4f}' for t in times[k])})"
+              for k in order) + f"; the group's device time "
+          + (f"{dev:.4f} ms in {n} kernels" if n == want else
+             f"not measured (the profiler session kept {n} of {want} kernels)")
+          + f"; bound {fwd + bwd:.4f} ms ({by}) [{smi}]")
+    return out
+
+
+def _check_per_step(label: str, per_step: list, want: dict) -> None:
+    """Every step's launch counts equal to ``want``, every other count 0."""
+    for i, n in enumerate(per_step, start=1):
+        if n != {k: want.get(k, 0) for k in n}:
+            raise AssertionError(f"{label} step {i} launched {n}, not {want} and nothing "
+                                 f"else")
+
+
+def phase_on_demon(device, root: str, *, height: int = C5_HEIGHT, width: int = C5_WIDTH,
+                   batch: int = C5_BATCH, steps: int = C5_STEPS, dtype: str = "bfloat16",
+                   smi: str = "") -> dict:
+    """Config 5 for ``steps`` steps through ``on_demon``'s ``train`` on synthetic DeMoN
+    batches, with the launch counts of each step; every loss component finite; the
+    checkpoint read back into the truncated DepthPoseNet with a finite eval forward.
+    Returns the per-step counts, the seconds and the checkpoint's variables."""
+    ckpt = os.path.join(root, "on_demon")
+    args = on_demon.parse_args([
+        "--checkpoint_dir", ckpt, "--image_height", str(height), "--image_width",
+        str(width), "--batch_size", str(batch), "--max_steps", str(steps),
+        "--summary_freq", "1", "--save_latest_freq", str(steps), "--dtype", dtype,
+        "--device", str(device), "--seed", str(SEED)])
+    log: list = []
+    t0 = time.perf_counter()
+    state, _ = on_demon.train(args, on_demon.loss_weights(args), on_demon.make_state(args),
+                              _counting(demon_batches(batch, height, width, device), log))
+    per_step = _per_step(log, read_counts())
+    seconds = time.perf_counter() - t0
+    records = _records(ckpt, ("total", "smooth", "depth"))
+    if state.step != steps or len(records) != steps:
+        raise AssertionError(f"on_demon: step {state.step}, records {records}")
+    for r, n in zip(records, per_step):
+        print(f"on_demon step {r['step']}: " + ", ".join(
+            f"{k} {r[k]:.4f}" for k in ("total", "smooth", "depth"))
+            + f"; launches {n} [{smi}]")
+    variables, meta = load_variables_npz(os.path.join(ckpt, f"model-{steps}.npz"))
+    model = depth_pose_from_variables(variables, device=device)
+    x = next(demon_batches(batch, height, width, device, seed=SEED + 10))
+    with torch.no_grad():
+        disps, pose, masks = model(x["image_pair"].permute(0, 3, 1, 2))
+    shapes = [(batch, 1, height >> s, width >> s) for s in (2, 3)]
+    if model.full_resolution or [tuple(d.shape) for d in disps] != shapes \
+            or not all(bool(torch.isfinite(o).all()) for o in (*disps, pose, *masks)):
+        raise AssertionError(f"on_demon checkpoint step {meta.get('step')}: "
+                             f"{[tuple(d.shape) for d in disps]} or non-finite")
+    print(f"on_demon: {steps} steps of config 5 ({dtype}, {height}x{width}, batch {batch}) "
+          f"through the CLI's train in {seconds:.1f} s host clock; every loss component "
+          f"finite; model-{steps}.npz read back into the truncated DepthPoseNet, eval "
+          f"forward finite [{smi}]")
+    return {"per_step": per_step, "seconds": seconds, "variables": variables}
+
+
+def phase_lr(device, root: str, mode: str, *, height: int = LR_HEIGHT, width: int = LR_WIDTH,
+             batch: int = LR_BATCH, steps: int = LR_STEPS, dtype: str = "bfloat16",
+             smi: str = "") -> dict:
+    """``depth_then_cam_lr`` in ``mode`` (``lr_full``, or ``lr_gt``: ``--gt_pose``) for
+    ``steps`` steps through the CLI's ``train`` on synthetic DeMoN batches, with the launch
+    counts of each step; every loss component finite; the checkpoint read back into
+    ``LRNet`` with a finite eval forward. Returns the per-step counts and the seconds."""
+    gt_pose = LR_MODES[mode]
+    ckpt = os.path.join(root, mode)
+    args = depth_then_cam_lr.parse_args([
+        "--checkpoint_dir", ckpt, "--image_height", str(height), "--image_width",
+        str(width), "--batch_size", str(batch), "--max_steps", str(steps),
+        "--summary_freq", "1", "--save_latest_freq", str(steps), "--dtype", dtype,
+        "--device", str(device), "--seed", str(SEED)] + (["--gt_pose"] if gt_pose else []))
+    log: list = []
+    t0 = time.perf_counter()
+    state, _ = depth_then_cam_lr.train(
+        args, depth_then_cam_lr.loss_weights(args), depth_then_cam_lr.make_state(args),
+        _counting(demon_batches(batch, height, width, device, seed=SEED + 11), log))
+    per_step = _per_step(log, read_counts())
+    seconds = time.perf_counter() - t0
+    keys = ("total", "pixel", "smooth", "exp", "cam", "consist", "depth") \
+        + (("sig",) if gt_pose else ())
+    records = _records(ckpt, keys)
+    if state.step != steps or len(records) != steps:
+        raise AssertionError(f"{mode}: step {state.step}, records {records}")
+    for r, n in zip(records, per_step):
+        print(f"{mode} step {r['step']}: " + ", ".join(f"{k} {r[k]:.4f}" for k in keys)
+              + f"; launches {n} [{smi}]")
+    variables, meta = load_variables_npz(os.path.join(ckpt, f"model-{steps}.npz"))
+    model = lrnet_from_variables(variables, device=device)
+    x = next(demon_batches(batch, height, width, device, seed=SEED + 12))["image_pair"]
+    with torch.no_grad():
+        out = model(x[..., :3], x[..., 3:])
+    tensors = [t for v in out.values() for t in (v if isinstance(v, list) else [v])]
+    if model.with_single == gt_pose or tuple(out["pair_left"][0].shape) != \
+            (batch, height, width, 1) or not all(bool(torch.isfinite(t).all())
+                                                 for t in tensors):
+        raise AssertionError(f"{mode} checkpoint step {meta.get('step')}: "
+                             f"{sorted(out)} or non-finite")
+    print(f"{mode}: {steps} steps ({dtype}, {height}x{width}, batch {batch}) through the "
+          f"CLI's train in {seconds:.1f} s host clock; every loss component finite; "
+          f"model-{steps}.npz read back into LRNet(with_single={not gt_pose}), eval forward "
+          f"finite [{smi}]")
+    return {"per_step": per_step, "seconds": seconds}
+
+
+def _lr_cli(mode: str, dtype: str, device):
+    """``depth_then_cam_lr``'s arguments in ``mode`` at the smoke's size, seed, ``dtype``
+    and ``device``."""
+    return depth_then_cam_lr.parse_args(
+        ["--image_height", str(LR_HEIGHT), "--image_width", str(LR_WIDTH), "--batch_size",
+         str(LR_BATCH), "--dtype", dtype, "--device", str(device), "--seed", str(SEED)]
+        + (["--gt_pose"] if LR_MODES[mode] else []))
+
+
+def _plain_terms(step):
+    """``step`` with its smoothness and sig terms on their plain versions."""
+    def run(state, batch):
+        with plain_smoothness(), plain_sig():
+            return step(state, batch)
+    return run
+
+
+def phase_lr_parity(device, smi: str) -> dict:
+    """One f32 step of each L/R mode with the kernels (sampler, smoothness, sig) against
+    one with their plain versions, from one init and batch; the bf16 step's total against
+    the f32 one."""
+    batch = next(demon_batches(LR_BATCH, LR_HEIGHT, LR_WIDTH, device, seed=SEED + 13))
+    out = {}
+    for mode in LR_MODES:
+        runs = {}
+        for name, dtype in (("kernel", "float32"), ("plain", "float32"),
+                            ("kernel_bf16", "bfloat16")):
+            args = _lr_cli(mode, dtype, device)
+            w = depth_then_cam_lr.loss_weights(args)
+            state = depth_then_cam_lr.make_state(args)  # one init: the seed's, f32 params
+            if name == "plain":
+                step = _plain_terms(depth_then_cam_lr.make_step(
+                    args, dataclasses.replace(w, sampler="xla")))
+            else:
+                step = depth_then_cam_lr.make_step(args, w)
+            state, metrics = step(state, batch)
+            runs[name] = ({k: float(v) for k, v in metrics.items()},
+                          {k: p.detach() for k, p in state.model.named_parameters()})
+            del state
+        out[mode] = _compare_steps(mode, runs, 2e-4, smi)
+    return out
+
+
+@contextlib.contextmanager
+def sampled_outside(record: list):
+    """Within the block each sampler group call of the loss pipelines first appends
+    (target pixels whose sampling point lies outside its source image, NaN included;
+    target pixels) to ``record``: a reading for the measurements only."""
+    saved = pipelines.bilinear_sample_group
+
+    def group(imgs, coords, *rest):
+        with torch.no_grad():
+            n_out = n = 0
+            for im, c in zip(imgs, coords):
+                x, y = c[..., 0], c[..., 1]
+                inside = (x >= 0) & (x <= im.shape[2] - 1) & (y >= 0) & (y <= im.shape[1] - 1)
+                n_out, n = n_out + int((~inside).sum()), n + inside.numel()
+            record.append((n_out, n))
+        return saved(imgs, coords, *rest)
+
+    pipelines.bilinear_sample_group = group
+    try:
+        yield
+    finally:
+        pipelines.bilinear_sample_group = saved
+
+
+def phase_demon_times(device, smi: str) -> dict:
+    """ms/step of the bf16 config-5, ``lr_full`` and ``lr_gt`` steps (192x256, B=16) with
+    the kernels, with every term on its plain version, and for the L/R modes with the
+    plain sampler and the loss kernels (the ``sampler`` default's question), in turns of 5
+    steps (the ways in order, then reversed) on one state and batch; then each config's
+    launches, device time by kind and busy share a step from ``profile_step``, with the
+    kernels and with the plain versions."""
+    out = {}
+    for config, (cli, flags) in profile_step.DEMON_CLIS.items():
+        w, state, kernel_step, batch = profile_step.CONFIGS[config](
+            None, None, None, device, "kernel")
+        make = functools.partial(cli.make_step, cli.parse_args(list(flags)))
+        plain_w = dataclasses.replace(w, sampler="xla")
+        steps = {"kernel": kernel_step, "plain": _plain_terms(make(plain_w))}
+        if config != "on_demon":
+            steps["plain_sampler"] = make(plain_w)
+            record: list = []
+            with sampled_outside(record):  # the first step from the seeded init
+                kernel_step(state, batch)
+            n_out, n = map(sum, zip(*record))
+            print(f"{config} step from the seeded init: {n_out} of {n} sampled target "
+                  f"pixels ({n_out / n:.1%}) outside their source image [{smi}]")
+            outside = n_out / n
+        order = list(steps)
+        times = {k: [] for k in steps}
+        for name in order[::-1] + order:
+            times[name].append(time_ms(lambda: steps[name](state, batch), 5))
+        out[config] = {"outside": outside} if config != "on_demon" else {}
+        for name, ts in times.items():
+            ms = sum(ts) / len(ts)
+            out[config][name] = {"ms": ms, "turns": ts}
+            print(f"time training step bf16 {config} ({w.height}x{w.width}, "
+                  f"B={LR_BATCH}) {name}: {ms:.2f} ms/step (turns "
+                  f"{', '.join(f'{t:.2f}' for t in ts)}; spread {max(ts) - min(ts):.2f} ms), "
+                  f"{LR_BATCH / ms * 1e3:.1f} frames/s [{smi}]")
+        del state
+        for name, way in (("kernel", "kernel"), ("plain", "plain")):
+            prof = profile_step.profile(steps=3, device=device, config=config, sampler=way,
+                                        smoothness=way, sig=way, top=0)
+            out[config][name].update(
+                launches=prof["launches"], kernel_ms=prof["kernel_ms"],
+                busy=prof["kernel_ms"] / prof["wall_ms"], kinds=prof["kinds"],
+                sampler_ms=kind_ms(prof, "sampler kernels",
+                                   2 if way == "kernel" and config != "on_demon" else 0))
+    return out
+
+
 def reset_counts() -> None:
     fused_tail.launches = bilinear_sample.launches = bilinear_sample.backward_launches = 0
     smoothness_fused.launches = smoothness_fused.backward_launches = 0
@@ -2696,6 +3087,31 @@ def main() -> None:
     phase_device_cache("cuda", info["smi"])
     stamp("module serving and DeviceCache")
 
+    lr_sample_errs = phase_lr_sampler("cuda", info["smi"])
+    demon = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()  # a main path: config-5 training
+        c5 = phase_on_demon("cuda", tmp, smi=info["smi"])
+        demon["on_demon"] = read_counts()
+        _check_per_step("config 5", c5["per_step"], DEMON_PER_STEP["on_demon"])
+        reset_counts()  # a main path: config 5's checkpoint served by PairPredictor
+        phase_pair_serving("cuda", c5["variables"], smi=info["smi"])
+        c5_served = read_counts()
+        if any(c5_served.values()):
+            raise AssertionError(f"pair serving of config 5's checkpoint launched {c5_served}")
+        for mode in LR_MODES:
+            reset_counts()  # a main path: the L/R family in one mode
+            lr = phase_lr("cuda", tmp, mode, smi=info["smi"])
+            demon[mode] = read_counts()
+            _check_per_step(mode, lr["per_step"], DEMON_PER_STEP[mode])
+    for config, counts in demon.items():
+        print(f"{config} launches: {counts} in {C5_STEPS if config == 'on_demon' else LR_STEPS} "
+              f"steps, {DEMON_PER_STEP[config]} a step and nothing else [{info['smi']}]")
+    stamp("config 5 and the L/R family")
+    phase_lr_parity("cuda", info["smi"])
+    demon_times = phase_demon_times("cuda", info["smi"])
+    stamp("L/R step parity and the DeMoN-stream times")
+
     kernels = [{
         "name": "fused_tail", "route": "cuda",
         "source": "tf_depth_estimation_torch/csrc/fused_tail.cu",
@@ -2730,6 +3146,20 @@ def main() -> None:
         # grid: the closest library call, not the same function (normalised coordinates,
         # no wmask)
         "library_ms": srow["grid_sample_fwdbwd"],
+        # the L/R family's runs (5 steps each; 16 samplings a step, dimgs on 8), the
+        # largest differences of its mixed C=3 / C=1 group from the plain version, and
+        # the sampler kernels' device time in a bf16 lr_full step (profile_step)
+        "lr_full_launches": demon["lr_full"]["bilinear_sample"]
+        + demon["lr_full"]["bilinear_sample_bwd"],
+        "lr_gt_launches": demon["lr_gt"]["bilinear_sample"]
+        + demon["lr_gt"]["bilinear_sample_bwd"],
+        "lr_group_max_abs_err": {k: lr_sample_errs[k] for k in ("out", "wmask", "dcoords",
+                                                                 "dimgs")},
+        "lr_group_ms": lr_sample_errs["group"]["ms"],
+        "lr_group_device_ms": lr_sample_errs["group"]["device_ms"],
+        "lr_group_plain_ms": lr_sample_errs["plain"]["ms"],
+        "lr_group_bound_ms": lr_sample_errs["bound_ms"],
+        "lr_full_device_ms": demon_times["lr_full"]["kernel"]["sampler_ms"],
     }, {
         # forward and backward of a config-4 step's group (12 maps, B=10, 224x480 down to
         # 28x60); launches: forward + backward in the config-4 run; per_map_loop_ms: the
@@ -2747,6 +3177,9 @@ def main() -> None:
         # forward + backward in the depth_only --turbo colon run (5 steps, 2 validations)
         "depth_only_turbo_launches": (c2t["counts"]["smoothness_fwd"]
                                       + c2t["counts"]["smoothness_bwd"]),
+        # forward + backward in the config-5 and L/R runs (5 steps each)
+        **{f"{c}_launches": demon[c]["smoothness_fwd"] + demon[c]["smoothness_bwd"]
+           for c in DEMON_PER_STEP},
     }, {
         # forward and backward of phase 2's group of a step (4 pairs, B=1, 192x256 down to
         # 24x32, delta 2); launches: forward + backward in both phases' runs;
@@ -2763,6 +3196,8 @@ def main() -> None:
         "bound_ms": sig_row["bound_fwd"] + sig_row["bound_bwd"],
         "bound_by": sig_row["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the same function
+        # forward + backward in the lr_gt run (5 steps; the 5-delta term at 192x256, B=16)
+        "lr_gt_launches": demon["lr_gt"]["sig_fwd"] + demon["lr_gt"]["sig_bwd"],
     }, {
         # forward and backward (dcoords) of a config-3 step's 4 warps (B=16, 192x256 down to
         # 24x32) in one group call, on the kernels of csrc/bilinear_sample.cu; launches:
@@ -2802,6 +3237,9 @@ def main() -> None:
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {info['smi']}")
+    # a device time a profiler session lost (None) is left out: not measured
+    kernels = [{k: v for k, v in row.items() if v is not None or k == "library_ms"}
+               for row in kernels]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                              "count": info["count"]}}))

@@ -5,8 +5,9 @@ one of config 2 with a validation, split_training's two phases, one step of conf
 the eval harness's two nets, pair serving of the full-resolution and the truncated
 DepthPoseNet, the nine TurboDepthNet presets' folded forward and turbo serving, the
 tensor-core probes' plain versions (the probes' entry points refuse to run without a card),
-distillation with its step parity and the device cache, and ``depth_only --turbo`` with
-depth serving from a checkpoint directory and through the module forward.
+distillation with its step parity and the device cache, ``depth_only --turbo`` with
+depth serving from a checkpoint directory and through the module forward, and the
+DeMoN-stream families: config 5 with its checkpoint served, and both L/R modes.
 
 The children run beside the other pytest workers, so each keeps PyTorch to two threads:
 one child with every path and PyTorch's default of a thread per core took ~4x its time
@@ -132,6 +133,22 @@ assert c2t["validations"] == 2 and c2t["served"] == 3 and served["batches"] == 2
                                                                                  served)
 assert module["frames"] == 14 and not any(c2t["counts"].values()), c2t
 """,
+    # config 5 and both L/R modes; on the CPU the sampler is its plain version (16
+    # samplings a step) and the loss terms theirs: no launch
+    "demon_stream": r"""
+with tempfile.TemporaryDirectory() as tmp:
+    c5 = chip_smoke.phase_on_demon("cpu", tmp, height=32, width=64, batch=2, steps=1,
+                                   dtype="float32")
+    served = chip_smoke.phase_pair_serving("cpu", c5["variables"], height=32, width=64,
+                                           batch=2, dtype=torch.float32)
+    lr = {m: chip_smoke.phase_lr("cpu", tmp, m, height=32, width=64, batch=2, steps=1,
+                                 dtype="float32") for m in chip_smoke.LR_MODES}
+assert served["frames_per_s"] > 0 and not any(c5["per_step"][0].values()), c5["per_step"]
+for m, run in lr.items():
+    n = run["per_step"][0]
+    assert n["plain_samples"] == 16 and not any(v for k, v in n.items()
+                                                if k != "plain_samples"), (m, n)
+""",
     # on the CPU the wrappers run their plain versions; the probes have no CPU path
     "dot_probes": r"""
 from tf_depth_estimation_torch.tools import (dot_variants, probe_int8_dot, probe_int8_dot2,
@@ -195,7 +212,11 @@ def test_every_port_module_is_imported_by_the_child():
             "tf_depth_estimation_torch.tools.probe_int8_dot2",
             "tf_depth_estimation_torch.train.distill",
             "tf_depth_estimation_torch.train.experiments.distill_turbo",
-            "tf_depth_estimation_torch.data.device_cache"} <= names
+            "tf_depth_estimation_torch.data.device_cache",
+            "tf_depth_estimation_torch.data.demon_v1",
+            "tf_depth_estimation_torch.models.composite",
+            "tf_depth_estimation_torch.train.experiments.on_demon",
+            "tf_depth_estimation_torch.train.experiments.depth_then_cam_lr"} <= names
 
 
 def test_no_port_file_names_jax_in_an_import():

@@ -26,7 +26,10 @@ def test_loss_weights_tables_match():
     for name in ("depth_only", "optflow_combine", "optflow_only", "split_training",
                  "gtdepth_gtcam", "dim11"):
         got = dataclasses.asdict(getattr(LossWeights, name)())
-        assert got == dataclasses.asdict(getattr(JLossWeights, name)()), name
+        ref = dataclasses.asdict(getattr(JLossWeights, name)())
+        if name == "gtdepth_gtcam":  # the L/R family's warps run the port's sampler kernels
+            assert (got.pop("sampler"), ref.pop("sampler")) == ("pallas", "xla")
+        assert got == ref, name
     assert LossWeights.optflow_combine().scale_hw(3) == (28, 60)
 
 

@@ -441,10 +441,26 @@ def test_cli_trains_both_phases_and_resumes_phase_2(demon_dir, tmp_path):
         "step"] == "4"
 
 
-@pytest.mark.parametrize("flag", ["--demon_v1", "--rich_summaries"])
+@pytest.mark.parametrize("flag", ["--rich_summaries"])
 def test_cli_refuses_flags_it_lacks(flag, tmp_path):
     with pytest.raises(SystemExit):
         split_training.parse_args(["--dataset_dir", str(tmp_path), flag])
+
+
+def test_cli_reads_demon_v1_through_demon_loader(tmp_path):
+    """``--demon_v1`` is accepted, and the DeMoN stream the CLI reads
+    (``common.demon_loader``) then streams classic v1 archives in place: the first batch of
+    a v1 archive, at the CLI's size."""
+    from tf_depth_estimation_torch.data.demon_v1 import write_demon_v1_h5
+    from tf_depth_estimation_torch.train.experiments.common import demon_loader
+
+    write_demon_v1_h5(str(tmp_path / "scenes11_train.h5"), num_scenes=2, H=H, W=W)
+    args = split_training.parse_args(["--dataset_dir", str(tmp_path), "--demon_v1",
+                                      "--batch_size", "2", "--device", "cpu"])
+    assert args.demon_v1
+    batch = next(demon_loader(args, H, W))
+    assert batch["image_pair"].shape == (2, H, W, 6) and batch["depth0"].shape == (2, H, W, 1)
+    assert bool(torch.isfinite(batch["depth0"]).all())
 
 
 def test_cli_defaults_match_jax():

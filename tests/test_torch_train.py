@@ -182,11 +182,21 @@ def test_cli_resumes_with_continue_train(cli_run, dataset):
     assert all(int(s["step"]) == 4 for s in adam_state.values())
 
 
-@pytest.mark.parametrize("flag", ["--native_loader", "--demon_v1", "--tensorboard",
-                                  "--rich_summaries"])
+@pytest.mark.parametrize("flag", ["--native_loader", "--tensorboard", "--rich_summaries"])
 def test_cli_refuses_flags_of_later_slices(flag, tmp_path):
     with pytest.raises(SystemExit):
         optflow_combine.main(["--dataset_dir", str(tmp_path), flag, "--device", "cpu"])
+
+
+def test_cli_accepts_demon_v1_unread(tmp_path):
+    """``--demon_v1`` is accepted, and left unread, by a CLI that reads no DeMoN data, as
+    the JAX CLI accepts it (its parser is JAX's common one)."""
+    import inspect
+
+    args = optflow_combine.parse_args(["--dataset_dir", str(tmp_path), "--demon_v1",
+                                       "--device", "cpu"])
+    assert args.demon_v1 is True
+    assert "demon" not in inspect.getsource(optflow_combine)
 
 
 # the flags of the JAX CLIs that the port accepts without reading them further (JAX reads

@@ -16,7 +16,8 @@ On-disk schema (``data/synthetic.py:write_demon_h5`` writes it): one HDF5 group 
 sample with ``image_pair`` uint8 [H, W, 6], ``depth`` float32 [H, W], ``motion`` float32
 [6] and ``intrinsics`` float32 [4] (normalised fx fy cx cy). ``h5py`` is imported where a
 file is opened; ``augment`` and ``preprocess`` need none. The classic DeMoN v1 archives
-(``--demon_v1``) are not ported.
+(``--demon_v1``) are read by ``data/demon_v1.py:DemonV1Dataset``, a subclass that
+overrides ``_enumerate_keys`` and ``_load``.
 """
 from __future__ import annotations
 
@@ -127,7 +128,7 @@ class DemonDataset:
             f = h5py.File(path, "r")
             fi = len(self._files)
             self._files.append(f)
-            keys = sorted(f.keys())
+            keys = self._enumerate_keys(f)
             if not keys:
                 continue
             self._keys.extend((fi, k) for k in keys)
@@ -141,6 +142,11 @@ class DemonDataset:
             len(self._keys), size=min(self.params.scene_pool_size, max(1, len(self._keys))),
             p=self._probs))
         self._pool_lock = threading.Lock()  # StreamLoader's workers draw concurrently
+
+    @staticmethod
+    def _enumerate_keys(h5file) -> List[str]:
+        """The sample groups of one archive (a hook for layout subclasses)."""
+        return sorted(h5file.keys())
 
     def __len__(self):
         return len(self._keys)

@@ -5,8 +5,9 @@ reference experiment differs only in these constants, and the classmethods repro
 entry point's block. ``sampler`` takes the JAX package's names; in the port ``"pallas"``
 selects the hand-written CUDA sampler (``ops/bilinear_sample.py``), ``"fused"`` the same
 kernels under the fused warp's eligibility rule (``ops/bilinear_sample_fused.py``) and ``"xla"`` the plain PyTorch sampler
-(``geometry/sampling.py``). One preset differs from the JAX package's, in that field
-alone: ``depth_then_cam()`` takes ``"fused"`` where JAX keeps ``"xla"``.
+(``geometry/sampling.py``). Three presets differ from the JAX package's, in that field
+alone: ``depth_then_cam()`` takes ``"fused"``, and ``depth_then_cam_lr()`` and
+``gtdepth_gtcam()`` take ``"pallas"``, where JAX keeps ``"xla"``.
 """
 from __future__ import annotations
 
@@ -86,19 +87,29 @@ class LossWeights:
 
     @classmethod
     def depth_then_cam_lr(cls) -> "LossWeights":
-        """``train_depth_then_cam_lr.py:42-50`` — full symmetric L/R training."""
+        """``train_depth_then_cam_lr.py:42-50`` — full symmetric L/R training.
+
+        ``sampler="pallas"``, where the JAX package keeps ``"xla"``: a step's 16 samplings
+        (8 image warps, 8 inverse-depth resamples, 192x256 down to 24x32) launch the
+        port's sampler kernels once each way on the GPU.
+        """
         return cls(height=192, width=256, max_steps=200_000,
                    smooth_weight=1.0, data_weight=10.0, depth_weight=20.0,
-                   explain_reg_weight=1.0, cam_weight=5.0, cam_consist_weight=5.0)
+                   explain_reg_weight=1.0, cam_weight=5.0, cam_consist_weight=5.0,
+                   sampler="pallas")
 
     @classmethod
     def gtdepth_gtcam(cls) -> "LossWeights":
-        """``train_depth_then_cam_lr_gtdepth_gtcam.py:44-59``."""
+        """``train_depth_then_cam_lr_gtdepth_gtcam.py:44-59``.
+
+        ``sampler="pallas"`` where the JAX package keeps ``"xla"``, as
+        ``depth_then_cam_lr()``.
+        """
         return cls(height=192, width=256, max_steps=200_000,
                    smooth_weight=5.0, data_weight=1000.0, depth_weight=500.0,
                    sig_depth_weight=1500.0, explain_reg_weight=30.0,
                    cam_consist_weight=10.0, consist_weight=10.0,
-                   cam_weight_rot=100.0, cam_weight_tran=10.0)
+                   cam_weight_rot=100.0, cam_weight_tran=10.0, sampler="pallas")
 
     @classmethod
     def dim11(cls) -> "LossWeights":

@@ -3,13 +3,15 @@
 Each mirrors one reference loss graph, takes the predictions and the batch (NHWC, as in
 the JAX package) and returns ``(total, components)``. Ported so far: ``depth_only_loss``
 and ``depth_only_val_loss`` (BASELINE config 2), ``depth_then_cam_loss`` (config 3),
-``optflow_combine_loss`` (config 4), and ``pairwise_depth_loss`` and ``single_depth_loss``
-(the two phases of ``split_training``); the others come with their experiments. The
-smoothness terms of a loss go through one call of
+``optflow_combine_loss`` (config 4), ``on_demon_loss`` (config 5), ``pairwise_depth_loss``
+and ``single_depth_loss`` (the two phases of ``split_training``), and ``lr_full_loss`` and
+``lr_gt_pose_loss`` (the symmetric L/R family); the others come with their experiments.
+The smoothness terms of a loss go through one call of
 ``ops/smoothness.py:smoothness_fused_group`` and its sig terms through one of
-``ops/sig_l2.py:sig_l2_fused_group``, each map at its coefficient, and the warps of configs 3
-and 4 through one call of ``geometry/sampling.py:bilinear_sample_group``: one CUDA launch
-each way on the GPU, the plain versions on the CPU.
+``ops/sig_l2.py:sig_l2_fused_group``, each map at its coefficient, and the warps and
+resamples of configs 3 and 4 and of the L/R family through one call of
+``geometry/sampling.py:bilinear_sample_group``: one CUDA launch each way on the GPU, the
+plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -294,3 +296,154 @@ def pairwise_depth_loss(image_left: torch.Tensor, image_right: torch.Tensor,
     return total, {"total": total, "depth": depth_loss, "cam": cam_loss,
                    "pixel": pixel_loss, "consist": consist_loss, "sig": sig_loss,
                    "exp": exp_loss}
+
+
+def on_demon_loss(pred_depths: Sequence[torch.Tensor], label: torch.Tensor, w: LossWeights,
+                  scale_offset: int = 0, smooth_only: bool = True):
+    """DeMoN-stream depth training, BASELINE config 5 (ref
+    ``train_depth_only_onDemon.py:138-178``): per prediction the smoothness of 1/pred
+    divided by 2^s and an unweighted, unguarded L1 to the area-resized label, at scale
+    ``s = i + scale_offset`` (2 for the truncated DepthPoseNet's [disp3, disp4]). The total
+    is the smoothness alone, the reference's ``total_loss = smooth_loss``; ``smooth_only=
+    False`` adds the L1 term."""
+    scales = [i + scale_offset for i in range(len(pred_depths))]
+    smooth_loss = _smooth_loss([1.0 / p for p in pred_depths],
+                               [w.smooth_weight / 2**s for s in scales])
+    depth_loss = 0.0
+    for pred, s in zip(pred_depths, scales):
+        depth_loss += (_area(label, w.scale_hw(s)) - pred).abs().mean()
+    total = smooth_loss if smooth_only else smooth_loss + depth_loss
+    return total, {"total": total, "smooth": smooth_loss, "depth": depth_loss}
+
+
+def _softmax_exp(logits: torch.Tensor) -> torch.Tensor:
+    """The explainability weight: softmax over the first two logits, the second's share."""
+    return torch.softmax(logits[..., :2], -1)[..., 1:2]
+
+
+def _lr_warps(image_left, image_right, pair_left, pair_right, poses_l2r, poses_r2l,
+              intrinsics, fmt: str, w: LossWeights):
+    """The samplings of the L/R losses at every scale in one sampler group call: the right
+    image and the right view's inverse depth at the left view's warp coordinates, the left
+    image and the left view's inverse depth at the right view's. Per scale a dict of the
+    resized images, the warped images, the resampled inverse depths, the projected z of
+    each warp and (at s = 0) its pose matrix."""
+    imgs, coords, scales = [], [], []
+    for s in range(w.num_scales):
+        hw = w.scale_hw(s)
+        left, right = _area(image_left, hw), _area(image_right, hw)
+        c_l, z_l, pose_l = projective_coords(1.0 / pair_left[s][..., 0], poses_l2r,
+                                             intrinsics[:, s], fmt=fmt)
+        c_r, z_r, pose_r = projective_coords(1.0 / pair_right[s][..., 0], poses_r2l,
+                                             intrinsics[:, s], fmt=fmt)
+        imgs += [right, left, 1.0 / pair_right[s], 1.0 / pair_left[s]]
+        coords += [c_l, c_r, c_l, c_r]
+        scales.append({"left": left, "right": right, "z_left": z_l, "z_right": z_r,
+                       "pose_left": pose_l, "pose_right": pose_r})
+    outs, _ = bilinear_sample_group(imgs, coords, w.sampler)
+    for s, sc in enumerate(scales):
+        sc["warp_left"], sc["warp_right"], sc["inv_right_at_left"], sc["inv_left_at_right"] \
+            = outs[4 * s: 4 * s + 4]
+    return scales
+
+
+def _lr_exp_terms(sc: dict, exp_left, exp_right, s: int, B: int, w: LossWeights):
+    """(explainability regulariser, exp-weighted photometric sum, consistency sum) of the
+    L/R losses at scale ``s``, before their weights; the first two are 0 where
+    ``explain_reg_weight`` is 0, as in JAX."""
+    exp_l, exp_r = _softmax_exp(exp_left[s]), _softmax_exp(exp_right[s])
+    reg = pixel = 0.0
+    if w.explain_reg_weight > 0:
+        ref_mask = reference_explain_mask(B, w.height, w.width, s, device=exp_l.device)
+        reg = (explain_reg_loss(exp_left[s][..., :2], ref_mask)
+               + explain_reg_loss(exp_right[s][..., :2], ref_mask))
+        pixel = (((sc["warp_left"] - sc["left"]).abs() * exp_l).mean()
+                 + ((sc["warp_right"] - sc["right"]).abs() * exp_r).mean())
+    # the left/right inverse-depth consistency (consistent_depth_error)
+    consist = (((sc["z_left"] - sc["inv_right_at_left"]).abs() * exp_l).mean()
+               + ((sc["z_right"] - sc["inv_left_at_right"]).abs() * exp_r).mean())
+    return reg, pixel, consist
+
+
+def lr_full_loss(image_left: torch.Tensor, image_right: torch.Tensor,
+                 single_left: Sequence[torch.Tensor], single_right: Sequence[torch.Tensor],
+                 pair_left: Sequence[torch.Tensor], pair_right: Sequence[torch.Tensor],
+                 pred_poses_right: torch.Tensor, pred_poses_left: torch.Tensor,
+                 exp_left: Sequence[torch.Tensor], exp_right: Sequence[torch.Tensor],
+                 gt_right_cam: torch.Tensor, intrinsics: torch.Tensor, label: torch.Tensor,
+                 w: LossWeights):
+    """Full symmetric L/R training (ref ``train_depth_then_cam_lr.py:211-355``), per
+    scale: the smoothness of 1/d of all four depth lists divided by 2^s; the guarded L1 of
+    the single-view left prediction times ``depth_weight`` (no 1/2^s); the
+    explainability-weighted photometric L1 of both views warped with the predicted
+    angle-axis poses times ``data_weight`` (no 1/2^s); at s = 0 the full-4x4 pose MSE to
+    the GT in both directions times ``cam_weight``; the exp-weighted L/R inverse-depth
+    consistency times ``depth_weight``. ``gt_right_cam`` [B, 6] is [translation |
+    rotation]; ``pred_poses_*`` [B, 1, 6]; ``intrinsics`` [B, S, 3, 3]."""
+    B, n = image_left.shape[0], w.num_scales
+    smooth_loss = _smooth_loss(
+        [1.0 / d[s] for s in range(n) for d in (pair_left, pair_right, single_left,
+                                                single_right)],
+        [c for c in _smooth_coefs(w, n) for _ in range(4)])
+    depth_loss = pixel_loss = exp_loss = cam_loss = consist_loss = 0.0
+    gt_l2r = pose_vec_to_mat(gt_right_cam, "angleaxis")
+    scales = _lr_warps(image_left, image_right, pair_left, pair_right,
+                       pred_poses_right[:, 0, :], pred_poses_left[:, 0, :], intrinsics,
+                       "angleaxis", w)
+    for s, sc in enumerate(scales):
+        diff = replace_nonfinite(_area(label, w.scale_hw(s)) - single_left[s])
+        depth_loss += diff.abs().mean() * w.depth_weight
+        if s == 0:
+            cam_loss += ((gt_l2r - sc["pose_left"]) ** 2).mean() * w.cam_weight
+            cam_loss += ((invert_transform(gt_l2r) - sc["pose_right"]) ** 2).mean() \
+                * w.cam_weight
+        reg, pixel, consist = _lr_exp_terms(sc, exp_left, exp_right, s, B, w)
+        exp_loss += w.explain_reg_weight * reg
+        pixel_loss += pixel * w.data_weight
+        consist_loss += consist * w.depth_weight
+    total = pixel_loss + smooth_loss + exp_loss + cam_loss + consist_loss + depth_loss
+    return total, {"total": total, "pixel": pixel_loss, "smooth": smooth_loss,
+                   "exp": exp_loss, "cam": cam_loss, "consist": consist_loss,
+                   "depth": depth_loss}
+
+
+def lr_gt_pose_loss(image_left: torch.Tensor, image_right: torch.Tensor,
+                    pair_left: Sequence[torch.Tensor], pair_right: Sequence[torch.Tensor],
+                    pred_poses_right: torch.Tensor, pred_poses_left: torch.Tensor,
+                    exp_left: Sequence[torch.Tensor], exp_right: Sequence[torch.Tensor],
+                    gt_right_cam: torch.Tensor, intrinsics: torch.Tensor,
+                    label: torch.Tensor, w: LossWeights):
+    """GT-supervised symmetric L/R training (ref
+    ``train_depth_then_cam_lr_gtdepth_gtcam.py:195-340``): no single-view net; the warps
+    take the predicted pose matrices (``fmt="matrix"``); the cam loss is the reference's
+    asymmetric quirk, the rotation of l2r against the GT times ``cam_weight_rot`` and the
+    translation of r2l against the inverse GT times ``cam_weight_tran``; an un-ramped
+    5-delta sig term on ``pair_left[0]`` against the full-resolution label times
+    ``sig_depth_weight``; the depth L1, photometric and consistency terms carry 1/2^s
+    (consistency at ``consist_weight``)."""
+    B, n = image_left.shape[0], w.num_scales
+    gt_l2r = pose_vec_to_mat(gt_right_cam, "angleaxis")
+    pose_l2r = pose_vec_to_mat(pred_poses_right[:, 0, :], "angleaxis")
+    pose_r2l = pose_vec_to_mat(pred_poses_left[:, 0, :], "angleaxis")
+    cam_loss = (((gt_l2r[:, :3, :3] - pose_l2r[:, :3, :3]) ** 2).mean() * w.cam_weight_rot
+                + ((invert_transform(gt_l2r)[:, :3, 3] - pose_r2l[:, :3, 3]) ** 2).mean()
+                * w.cam_weight_tran)
+    sig_loss = _sig_loss(pair_left[:1], [label], (1, 2, 4, 8, 16), w.sig_depth_weight)
+    smooth_loss = _smooth_loss(
+        [1.0 / d[s] for s in range(n) for d in (pair_left, pair_right)],
+        [c for c in _smooth_coefs(w, n) for _ in range(2)])
+    depth_loss = pixel_loss = exp_loss = consist_loss = 0.0
+    scales = _lr_warps(image_left, image_right, pair_left, pair_right, pose_l2r, pose_r2l,
+                       intrinsics, "matrix", w)
+    for s, sc in enumerate(scales):
+        diff = replace_nonfinite(_area(label, w.scale_hw(s)) - pair_left[s])
+        depth_loss += diff.abs().mean() * w.depth_weight / 2**s
+        reg, pixel, consist = _lr_exp_terms(sc, exp_left, exp_right, s, B, w)
+        exp_loss += w.explain_reg_weight * reg
+        pixel_loss += pixel * w.data_weight / 2**s
+        consist_loss += consist * w.consist_weight / 2**s
+    total = (pixel_loss + smooth_loss + exp_loss + cam_loss + consist_loss + depth_loss
+             + sig_loss)
+    return total, {"total": total, "pixel": pixel_loss, "smooth": smooth_loss,
+                   "exp": exp_loss, "cam": cam_loss, "consist": consist_loss,
+                   "depth": depth_loss, "sig": sig_loss}

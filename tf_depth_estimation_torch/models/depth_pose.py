@@ -145,3 +145,11 @@ class DepthPoseNet(nn.Module):
             up = resize_like(up, disp2_up)
         x = layer("icnv1")(torch.cat([up, disp2_up.to(self.dtype)], 1))
         return [self._disp("disp1", x), disp2, disp3, disp4], pose, masks
+
+    def forward_nhwc(self, image_pair: torch.Tensor
+                     ) -> Tuple[List[torch.Tensor], torch.Tensor, List[torch.Tensor]]:
+        """``forward`` in the layout the losses use: the pair [B, H, W, 6], the disparities
+        and mask logits [B, h, w, c]; the pose as there."""
+        disps, pose, masks = self(image_pair.permute(0, 3, 1, 2))
+        return ([d.permute(0, 2, 3, 1) for d in disps], pose,
+                [m.permute(0, 2, 3, 1) for m in masks])

@@ -150,6 +150,35 @@ def ways(unit: str) -> Dict[str, Callable]:
     return out
 
 
+ACTS = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+
+def spend_profiler_session(fn: Callable[[], object]) -> None:
+    """One call of ``fn`` under a profiler session whose events are dropped. A profiler
+    session opened after others in one process lost its first kernels (in chip_smoke.py,
+    after profile_step's), even after a warm-up cycle; fewer did after one such as this."""
+    with torch.profiler.profile(activities=ACTS):
+        fn()
+        torch.cuda.synchronize()
+
+
+def device_ms(fn: Callable[[], object]) -> tuple:
+    """(device ms, kernel launches) of one call of ``fn`` under ``torch.profiler``, after
+    a warm-up call in the same session; ``spend_profiler_session`` first. A session can
+    still lose some or all of its kernel events: the count, printed beside the time, shows
+    it (fewer kernels than ``fn`` launches)."""
+    with torch.profiler.profile(activities=ACTS, schedule=torch.profiler.schedule(
+            wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+          and not getattr(e, "is_user_annotation", False)]
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3, len(ev)
+
+
 def time_unit(warps: List[tuple], fns: Dict[str, Callable]) -> dict:
     """``<way>_fwd`` and ``<way>_fwdbwd`` (ms, the mean of the turns; ``..._turns`` each),
     ``<way>_device_ms`` and ``<way>_kernels`` (device time and kernel launches of one
@@ -172,7 +201,6 @@ def time_unit(warps: List[tuple], fns: Dict[str, Callable]) -> dict:
         return torch.autograd.grad([outs[k] for k in grads], [leaves[k] for k in grads], cot)
 
     order = list(fns)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for t in range(TURNS):
         for name in (order if t % 2 == 0 else order[::-1]):
             iters = 5 if name == "plain" else 20
@@ -181,27 +209,12 @@ def time_unit(warps: List[tuple], fns: Dict[str, Callable]) -> dict:
             fb = time_ms(lambda: both(name), iters)
             out.setdefault(f"{name}_fwd_turns", []).append(fwd)
             out.setdefault(f"{name}_fwdbwd_turns", []).append(fb)
-    # a profiler session opened after others in one process lost its first kernels (in
-    # chip_smoke.py, after profile_step's), even after a warm-up cycle: one session is
-    # spent before the measured ones, and each of those has a warm-up cycle too
-    with torch.profiler.profile(activities=acts):
-        both(order[0])
-        torch.cuda.synchronize()
+    spend_profiler_session(lambda: both(order[0]))
     for name in order:
         for part in ("fwd", "fwdbwd"):
             ts = out[f"{name}_{part}_turns"]
             out[f"{name}_{part}"] = sum(ts) / len(ts)
-        with torch.profiler.profile(activities=acts, schedule=torch.profiler.schedule(
-                wait=0, warmup=1, active=1)) as prof:
-            both(name)
-            torch.cuda.synchronize()
-            prof.step()
-            both(name)
-            torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-        out[f"{name}_device_ms"] = sum(e.time_range.elapsed_us() for e in ev) / 1e3
-        out[f"{name}_kernels"] = len(ev)
+        out[f"{name}_device_ms"], out[f"{name}_kernels"] = device_ms(lambda: both(name))
     bf, by_f = unit_bound(warps, False)
     bb, by_b = unit_bound(warps, True)
     out.update(bound_fwd=bf, bound_bwd=bb, bound_by=by_b if bb >= bf else by_f)

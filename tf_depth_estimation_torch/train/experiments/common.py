@@ -8,6 +8,7 @@ import os
 import torch
 
 from tf_depth_estimation_torch.data.demon import DemonDataset, DemonReaderParams
+from tf_depth_estimation_torch.data.demon_v1 import DemonV1Dataset
 from tf_depth_estimation_torch.data.pipeline import BatchLoader, StreamLoader, device_prefetch
 from tf_depth_estimation_torch.train.checkpoint import CheckpointManager
 from tf_depth_estimation_torch.train.loop import MetricLogger
@@ -16,8 +17,6 @@ from tf_depth_estimation_torch.train.loop import MetricLogger
 # ignoring them
 NOT_PORTED = {
     "native_loader": "the C++ loader (native/) is bound by a later slice",
-    "demon_v1": "the classic DeMoN v1 archive reader (data/demon_v1.py) is not ported; "
-                "convert the archives to the flat schema with the JAX package",
     "tensorboard": "TensorBoard summaries are not ported; metrics go to metrics.jsonl",
     "rich_summaries": "image and histogram summaries are not ported",
 }
@@ -28,7 +27,8 @@ def base_parser(description: str, batch_size: int, max_steps: int) -> argparse.A
     and defaults, plus ``--device``. Those of later slices are refused (``NOT_PORTED``);
     ``--validate_dir`` and ``--init_checkpoint_file`` are accepted and unread, as in
     JAX, and ``--image_summary_freq`` and ``--fixture_images`` are read there only under
-    ``--rich_summaries``."""
+    ``--rich_summaries``. ``--demon_v1`` is read by ``demon_loader``; the CLIs that read
+    no DeMoN data accept it unread, as in JAX."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--dataset_dir", default="")
     p.add_argument("--validate_dir", default="./validation")
@@ -47,6 +47,9 @@ def base_parser(description: str, batch_size: int, max_steps: int) -> argparse.A
     p.add_argument("--num_epochs", type=int, default=1500)
     p.add_argument("--image_summary_freq", type=int, default=500)
     p.add_argument("--fixture_images", default=None)
+    p.add_argument("--demon_v1", action="store_true",
+                   help="stream classic DeMoN v1 HDF5 archives in place "
+                        "(sun3d/rgbd/mvs/scenes11 as released) instead of the flat schema")
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
     for flag, why in NOT_PORTED.items():
         p.add_argument(f"--{flag}", action="store_true", help=f"not ported: {why}")
@@ -90,10 +93,12 @@ def demon_loader(args, height: int, width: int, test_phase: bool = False):
     ``StreamLoader`` for training, the sources in order for the test phase. The test
     phase reads with one worker: with two, as the JAX package reads it, whichever batch a
     worker finishes first comes first, so an evaluation could average one batch twice and
-    skip the next (ROADMAP Queue 3 #4)."""
+    skip the next (ROADMAP Queue 3 #4). ``--demon_v1`` reads classic v1 archives in place
+    (``DemonV1Dataset``)."""
     params = DemonReaderParams(batch_size=args.batch_size, scaled_height=height,
                                scaled_width=width, test_phase=test_phase)
-    ds = DemonDataset(demon_sources(args.dataset_dir), params, seed=args.seed)
+    cls = DemonV1Dataset if getattr(args, "demon_v1", False) else DemonDataset
+    ds = cls(demon_sources(args.dataset_dir), params, seed=args.seed)
     if test_phase:
         loader = BatchLoader(ds, args.batch_size, seed=args.seed, shuffle=False,
                              num_workers=1)

@@ -98,10 +98,6 @@ def single_model(args) -> DispNet:
     return model.to(args.device).eval()
 
 
-def _nhwc(ts):
-    return [t.permute(0, 2, 3, 1) for t in ts]
-
-
 def make_eval_fn(w: LossWeights, pair: DepthPoseNet,
                  single: Optional[DispNet] = None) -> Callable[[dict], Dict[str, torch.Tensor]]:
     """batch -> loss components of one DeMoN batch: the pair net's losses, or with
@@ -112,13 +108,12 @@ def make_eval_fn(w: LossWeights, pair: DepthPoseNet,
     def eval_pair(batch):
         pair_img = batch["image_pair"]
         left, right = pair_img[..., :3], pair_img[..., 3:]
-        d_l, pose_r, exp_l = pair(pair_img.permute(0, 3, 1, 2))
-        d_r, pose_l, exp_r = pair(torch.cat([right, left], -1).permute(0, 3, 1, 2))
+        d_l, pose_r, exp_l = pair.forward_nhwc(pair_img)
+        d_r, pose_l, exp_r = pair.forward_nhwc(torch.cat([right, left], -1))
         gt_cam = torch.cat([batch["translation"], batch["rotation"]], -1)
         _, comps = pairwise_depth_loss(
-            left, right, _nhwc(d_l), pose_r, _nhwc(exp_l), _nhwc(d_r), pose_l,
-            _nhwc(exp_r), gt_cam, batch["intrinsics"], batch["depth0"], w.max_steps, w,
-            full_scales=True)
+            left, right, d_l, pose_r, exp_l, d_r, pose_l, exp_r, gt_cam,
+            batch["intrinsics"], batch["depth0"], w.max_steps, w, full_scales=True)
         return comps
 
     @torch.no_grad()
@@ -126,8 +121,8 @@ def make_eval_fn(w: LossWeights, pair: DepthPoseNet,
         pair_img = batch["image_pair"]
         disps, _pose, _masks = pair(pair_img.permute(0, 3, 1, 2))
         coarse = resize_nearest(disps[0], (H, W)).permute(0, 2, 3, 1)
-        preds = single(torch.cat([coarse, pair_img[..., :3]], -1).permute(0, 3, 1, 2))
-        _, comps = single_depth_loss(_nhwc(preds), batch["depth0"], w.max_steps, w)
+        preds = single.forward_nhwc(torch.cat([coarse, pair_img[..., :3]], -1))
+        _, comps = single_depth_loss(preds, batch["depth0"], w.max_steps, w)
         return comps
 
     return eval_pair if single is None else eval_single

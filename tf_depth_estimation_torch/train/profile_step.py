@@ -9,11 +9,15 @@ device time summed by kernel and by kind of work.
 full-resolution DepthPoseNet on a DeMoN pair, 192x256, batch 16), ``split_pair``
 (split_training's phase 1: the truncated DepthPoseNet on a DeMoN pair, 192x256, batch 1)
 ``split_single`` (its phase 2: depth4 DispNet over [coarse depth | image], 192x256,
-batch 1), ``depth_only_turbo`` (config 2T: turbo-colon on config 2's batch) or ``distill``
+batch 1), ``depth_only_turbo`` (config 2T: turbo-colon on config 2's batch), ``distill``
 (turbo-base learning a seeded depth4 teacher's pyramid through the teacher's folded
-forward, 576x384, batch 8), bf16, as the CLIs train. ``--sampler plain`` (the warps of configs 3 and 4),
-``--smoothness plain`` and ``--sig plain`` route those terms to their plain versions for
-the measurement, as a yardstick for the kernels (the port itself always runs them). The
+forward, 576x384, batch 8), ``on_demon`` (config 5: the truncated DepthPoseNet on a DeMoN
+pair, 192x256, batch 16), ``lr_full`` (``depth_then_cam_lr``: LRNet on a DeMoN pair,
+192x256, batch 16) or ``lr_gt`` (``depth_then_cam_lr --gt_pose``), bf16, as the CLIs
+train. ``--sampler plain`` (the warps of configs 3 and 4 and the samplings of the L/R
+family), ``--smoothness plain`` and ``--sig plain`` route those terms to their plain
+versions for the measurement, as a yardstick for the kernels (the port itself always runs
+them). The
 batch is synthetic (``data/synthetic.py``'s scenes, on the device before the window),
 the weights random from seed 0. Prints the top kernels,
 the share of each kind, the steps' wall time and the device's busy share (kernel time over
@@ -41,6 +45,7 @@ from tf_depth_estimation_torch.models.turbo import TurboDepthNet, TurboVariant
 from tf_depth_estimation_torch.ops.sig_l2 import sig_l2_plain_group
 from tf_depth_estimation_torch.ops.smoothness import smoothness_plain_group
 from tf_depth_estimation_torch.train.distill import folded_teacher, make_distill_step
+from tf_depth_estimation_torch.train.experiments import depth_then_cam_lr, on_demon
 from tf_depth_estimation_torch.train.experiments.split_training import single_batches
 from tf_depth_estimation_torch.train.state import create_train_state
 from tf_depth_estimation_torch.weights import state_dict_to_variables
@@ -147,6 +152,24 @@ def _depth_then_cam_setup(batch, height, width, device, sampler):
     return w, create_train_state(model), make_depth_then_cam_step(w), data
 
 
+def _cli_setup(cli, *flags: str):
+    """A DeMoN CLI's own loss weights, state and step (``cli.loss_weights``,
+    ``make_state``, ``make_step`` under ``flags``), bf16 from seed 0, at its defaults where
+    the batch, height or width is None."""
+    def setup(batch, height, width, device, sampler):
+        sized = [a for flag, v in (("--batch_size", batch), ("--image_height", height),
+                                   ("--image_width", width)) if v for a in (flag, str(v))]
+        args = cli.parse_args(["--device", str(device), "--dtype", "bfloat16", "--seed", "0",
+                               *sized, *flags])
+        w = cli.loss_weights(args)
+        if sampler == "plain":
+            w = dataclasses.replace(w, sampler="xla")
+        data = demon_batch(args.batch_size, w.height, w.width, np.random.RandomState(0),
+                           device)
+        return w, cli.make_state(args), cli.make_step(args, w), data
+    return setup
+
+
 def _split_setup(phase: str):
     def setup(batch, height, width, device, sampler):
         w = LossWeights.split_training()
@@ -177,6 +200,9 @@ def _distill_setup(batch, height, width, device, sampler):
     return w, create_train_state(model), lambda st, d: step(st, d["image"]), {"image": images}
 
 
+# the DeMoN-stream configs -> (their CLI, its flags)
+DEMON_CLIS = {"on_demon": (on_demon, ()), "lr_full": (depth_then_cam_lr, ()),
+              "lr_gt": (depth_then_cam_lr, ("--gt_pose",))}
 # config -> setup(batch, height, width, device, sampler) -> (LossWeights, TrainState, step,
 # batch); a batch, height or width of None takes the configuration's own
 CONFIGS = {
@@ -190,7 +216,10 @@ CONFIGS = {
     "depth_only_turbo": _dispnet_setup(TurboVariant.colon, LossWeights.depth_only,
                                        make_depth_only_step, net=TurboDepthNet),
     "distill": _distill_setup,
+    **{config: _cli_setup(cli, *flags) for config, (cli, flags) in DEMON_CLIS.items()},
 }
+# the configurations whose warps a sampler runs
+SAMPLED = ("optflow_combine", "depth_then_cam", "lr_full", "lr_gt")
 
 
 def profile(steps: int = 3, sampler: str = "kernel", device="cuda", batch: int = None,
@@ -199,7 +228,7 @@ def profile(steps: int = 3, sampler: str = "kernel", device="cuda", batch: int =
             sig: str = "kernel") -> dict:
     """Profile ``steps`` bf16 steps of ``config`` after 2 warm-up steps, at the config's
     batch and size unless given; prints the table and returns ``{"wall_ms", "kernel_ms",
-    "launches", "kinds"}`` per step. ``sampler``, ``smoothness`` and ``sig`` pick the
+    "launches", "kinds", "kind_launches"}`` per step (a kind's device ms and launches). ``sampler``, ``smoothness`` and ``sig`` pick the
     kernels (``"kernel"``) or the plain versions (``"plain"``)."""
     w, state, step, data = CONFIGS[config](batch, height, width, device, sampler)
     batch = next(iter(data.values())).shape[0]
@@ -231,16 +260,17 @@ def profile(steps: int = 3, sampler: str = "kernel", device="cuda", batch: int =
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
     busy = sum(t for t, _ in by_name.values())
-    what = (f"sampler={w.sampler}, " if config in ("optflow_combine", "depth_then_cam")
-            else "") \
+    what = (f"sampler={w.sampler}, " if config in SAMPLED else "") \
         + f"smoothness={smoothness}, sig={sig}, "
     print(f"profile: {config}, bfloat16, {w.height}x{w.width}, batch {batch}, {what}"
           f"{steps} steps: wall {wall_us / steps / 1e3:.2f} ms/step (profiler on), kernel "
           f"time {busy / steps / 1e3:.2f} ms/step, busy share {busy / wall_us:.1%}, "
           f"{len(kernels) // steps} kernel launches/step")
     kinds = collections.defaultdict(float)
-    for name, (t, _) in by_name.items():
+    kind_launches = collections.defaultdict(int)
+    for name, (t, n) in by_name.items():
         kinds[kind_of(name)] += t
+        kind_launches[kind_of(name)] += n
     for kind, t in sorted(kinds.items(), key=lambda kv: -kv[1]):
         print(f"  kind {kind}: {t / steps / 1e3:.3f} ms/step ({t / busy:.1%})")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
@@ -248,7 +278,8 @@ def profile(steps: int = 3, sampler: str = "kernel", device="cuda", batch: int =
               f"{name[:110]}")
     return {"wall_ms": wall_us / steps / 1e3, "kernel_ms": busy / steps / 1e3,
             "launches": len(kernels) // steps,
-            "kinds": {k: t / steps / 1e3 for k, t in kinds.items()}}
+            "kinds": {k: t / steps / 1e3 for k, t in kinds.items()},
+            "kind_launches": {k: n / steps for k, n in kind_launches.items()}}
 
 
 def main(argv=None):

@@ -18,15 +18,14 @@ from tf_depth_estimation_torch.losses.pipelines import (
     depth_only_loss,
     depth_only_val_loss,
     depth_then_cam_loss,
+    lr_full_loss,
+    lr_gt_pose_loss,
+    on_demon_loss,
     optflow_combine_loss,
     pairwise_depth_loss,
     single_depth_loss,
 )
 from tf_depth_estimation_torch.train.state import TrainState
-
-
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 3, 1)
 
 
 def _apply(state: TrainState, total: torch.Tensor, comps: dict):
@@ -78,10 +77,9 @@ def make_depth_then_cam_step(w: LossWeights):
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state.model.train()
         pair = batch["image_pair"]
-        disps, poses, exps = state.model(pair.permute(0, 3, 1, 2))
-        total, comps = depth_then_cam_loss(
-            pair[..., :3], pair[..., 3:], [_nhwc(d) for d in disps], poses,
-            [_nhwc(e) for e in exps], batch["intrinsics"], w)
+        disps, poses, exps = state.model.forward_nhwc(pair)
+        total, comps = depth_then_cam_loss(pair[..., :3], pair[..., 3:], disps, poses, exps,
+                                           batch["intrinsics"], w)
         return _apply(state, total, comps)
 
     return step
@@ -119,13 +117,12 @@ def make_pairwise_step(w: LossWeights, full_scales: bool = False):
         state.model.train()
         pair = batch["image_pair"]
         left, right = pair[..., :3], pair[..., 3:]
-        d_l, pose_r, exp_l = state.model(pair.permute(0, 3, 1, 2))
-        d_r, pose_l, exp_r = state.model(torch.cat([right, left], -1).permute(0, 3, 1, 2))
+        d_l, pose_r, exp_l = state.model.forward_nhwc(pair)
+        d_r, pose_l, exp_r = state.model.forward_nhwc(torch.cat([right, left], -1))
         gt_cam = torch.cat([batch["translation"], batch["rotation"]], -1)
         label = batch["depth0"] if full_scales else batch["depth2"]
         total, comps = pairwise_depth_loss(
-            left, right, [_nhwc(d) for d in d_l], pose_r, [_nhwc(e) for e in exp_l],
-            [_nhwc(d) for d in d_r], pose_l, [_nhwc(e) for e in exp_r], gt_cam,
+            left, right, d_l, pose_r, exp_l, d_r, pose_l, exp_r, gt_cam,
             batch["intrinsics"], label, state.step, w, full_scales=full_scales)
         return _apply(state, total, comps)
 
@@ -141,6 +138,65 @@ def make_single_depth_step(w: LossWeights):
         state.model.train()
         outs = state.model.forward_nhwc(batch["input"])
         total, comps = single_depth_loss(outs, batch["label"], state.step, w)
+        return _apply(state, total, comps)
+
+    return step
+
+
+def make_on_demon_step(w: LossWeights, smooth_only: bool = True):
+    """BASELINE config 5 (``train_depth_only_onDemon.py``): the truncated DepthPoseNet on
+    the DeMoN pair; ``on_demon_loss`` on [disp3, disp4] at scales 2 and 3 against the
+    label ``depth0`` [B, H, W, 1], the smoothness alone unless ``smooth_only=False``.
+    Batch keys: ``image_pair`` [B, H, W, 6], ``depth0``."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.train()
+        disps, _, _ = state.model.forward_nhwc(batch["image_pair"])
+        total, comps = on_demon_loss(disps, batch["depth0"], w, scale_offset=2,
+                                     smooth_only=smooth_only)
+        return _apply(state, total, comps)
+
+    return step
+
+
+def _lr_inputs(state: TrainState, batch: Dict[str, torch.Tensor]):
+    """(left, right, LRNet's outputs, the GT camera [translation | rotation])."""
+    pair = batch["image_pair"]
+    left, right = pair[..., :3], pair[..., 3:]
+    out = state.model(left, right)
+    return left, right, out, torch.cat([batch["translation"], batch["rotation"]], -1)
+
+
+def make_lr_full_step(w: LossWeights):
+    """``train_depth_then_cam_lr.py``: ``LRNet`` (the single-view net on each view, the
+    pair net in both orders; each moves its running statistics twice) under
+    ``lr_full_loss``. Batch keys: ``image_pair`` [B, H, W, 6], ``rotation`` and
+    ``translation`` [B, 3], ``intrinsics`` [B, S, 3, 3], ``depth0`` [B, H, W, 1]."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.train()
+        left, right, out, gt_cam = _lr_inputs(state, batch)
+        total, comps = lr_full_loss(
+            left, right, out["single_left"], out["single_right"], out["pair_left"],
+            out["pair_right"], out["pose_right"], out["pose_left"], out["exp_left"],
+            out["exp_right"], gt_cam, batch["intrinsics"], batch["depth0"], w)
+        return _apply(state, total, comps)
+
+    return step
+
+
+def make_lr_gt_step(w: LossWeights):
+    """``train_depth_then_cam_lr_gtdepth_gtcam.py``: ``LRNet(with_single=False)``, the pair
+    net in both orders, under ``lr_gt_pose_loss``; the batch keys of
+    ``make_lr_full_step``."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.train()
+        left, right, out, gt_cam = _lr_inputs(state, batch)
+        total, comps = lr_gt_pose_loss(
+            left, right, out["pair_left"], out["pair_right"], out["pose_right"],
+            out["pose_left"], out["exp_left"], out["exp_right"], gt_cam,
+            batch["intrinsics"], batch["depth0"], w)
         return _apply(state, total, comps)
 
     return step

@@ -1,5 +1,6 @@
 """The weight bridge: JAX variables tree <-> the port's ``DispNet``, ``DepthPoseNet`` and
-``TurboDepthNet`` state dicts.
+``TurboDepthNet`` state dicts, and ``LRNet``'s, whose two submodules hold the
+``single/...`` and ``pair/...`` trees.
 
 A layer of the JAX tree (numpy arrays from a ``.npz`` or from a flax ``init``) is a node
 holding ``Conv_0`` or ``TFConvTranspose_0`` (``kernel``, and ``bias`` for a linear head)
@@ -20,6 +21,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from tf_depth_estimation_torch.models.composite import LRNet
 from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
 from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
 from tf_depth_estimation_torch.models.turbo import TurboDepthNet, TurboVariant
@@ -107,6 +109,15 @@ def depth_pose_from_variables(variables: Dict[str, Any], *, device="cuda") -> De
     params = variables["params"]
     model = DepthPoseNet(full_resolution="disp1" in params,
                          num_source=np.shape(params["pose_pred"]["Conv_0"]["kernel"])[3] // 6)
+    model.load_state_dict(variables_to_state_dict(variables), strict=True)
+    return model.eval().to(device)
+
+
+def lrnet_from_variables(variables: Dict[str, Any], *, device="cuda") -> LRNet:
+    """An eval-mode float32 ``LRNet`` on ``device`` holding ``variables`` (strict load):
+    with the single-view net where the tree has ``single``; the same path mapping as
+    ``dispnet_from_variables`` and ``depth_pose_from_variables`` under each submodule."""
+    model = LRNet(with_single="single" in variables["params"])
     model.load_state_dict(variables_to_state_dict(variables), strict=True)
     return model.eval().to(device)
 
