@@ -8,9 +8,11 @@ depth with in-loop validation) at 240x720, train both phases of split_training
 harness's two nets, serve DepthPoseNet pairs, run the int8 / bf16 tensor-core probes,
 serve TurboDepthNet, train TurboDepthNet on config 2 (``depth_only --turbo``) and by
 distillation from the depth4 teacher, serve from checkpoint directories, gather from a
-device-resident corpus, and train the DeMoN-stream families at 192x256: config 5 (the
+device-resident corpus, train the DeMoN-stream families at 192x256: config 5 (the
 truncated DepthPoseNet, ``on_demon``) and the symmetric L/R family (``LRNet``,
-``depth_then_cam_lr`` with and without ``--gt_pose``).
+``depth_then_cam_lr`` with and without ``--gt_pose``), and train the colon-pair families:
+``optflow_family``'s five modes on DispNet depth4 and sfm at 224x480, and ``dim11`` on the
+full-resolution DepthPoseNet at 224x224.
 
     python3 chip_smoke.py
 
@@ -56,7 +58,9 @@ Phases, each raising on failure:
      (B=10, 240x720 down to 30x90), on a strided C=1 flow plane of an NCHW [B, 2, H, W]
      head, a constant and a piecewise-constant map (exact ties) and an odd 37x53 map, and
      on whole steps' groups (``smoothness_fused_group``: config 4's 12 maps, config 2's
-     4, NCHW heads viewed NHWC, at their coefficients): the forward within rtol 1e-5 of
+     4, optflow3's 12 channel views of its 3-channel heads and optflow_only's 8 flow
+     planes at 224x480, NCHW heads viewed NHWC, at their coefficients; optflow3's total
+     also against the f64 term of the 3-channel maps): the forward within rtol 1e-5 of
      the float32 and the float64 plain term, the backward within 1e-6 max|g| of autograd
      of the plain term, and the same bits in two runs;
  12. training, a main path: the config-2 CLI (``train/experiments/depth_only.py``, bf16,
@@ -208,13 +212,37 @@ Phases, each raising on failure:
      sampled pixels outside their source image; launches, device time by kind and busy
      share a step of each from ``train/profile_step.py``, kernels and plain; a device
      time whose profiler session lost some of its kernels is not measured and left out
-     of the ``kernels`` line.
+     of the ``kernels`` line;
+ 37. training, six main paths: a colon-pair dataset (240x720 JPEG pairs) and a
+     dim11-layout one (224x224, 6-value cam files, the depths in a directory of their
+     own); ``optflow_family`` in each of its five modes (bf16, batch 10, resized to
+     224x480) and ``dim11`` (the full-resolution DepthPoseNet, bf16, batch 10, 224x224)
+     for 5 steps each through the CLIs' ``train`` and ``batches``, the launch counts read
+     before each batch is taken: one forward and one backward smoothness launch a step in
+     every mode, its group 4 C=1 maps (only_image, pre, dim11), 8 flow planes
+     (optflow_only) or the 12 channel views of 3-channel heads (optflow3, sfm), all
+     eligible; one forward and one backward sampler launch a step in only_image,
+     optflow_only and dim11 and no plain sampling; in sfm (JAX's "xla" preset) its 4
+     forward-only warps as plain samplings; nothing else; every loss component finite; each checkpoint read
+     back into its model with a finite eval forward; then the sfm checkpoint served by
+     ``DepthPredictor(variant=sfm)`` through the module forward, with no launch;
+ 38. step parity: one f32 step of optflow_only, of optflow3 (224x480) and of dim11
+     (224x224, pixels in [-0.5, 0.5]; B=10) with the kernels against one with the plain
+     sampler and smoothness term from one init and batch (phase 9's limits), and the bf16
+     total against the f32 one (phase 11 holds optflow3's 12-view and optflow_only's
+     8-plane groups to the plain term);
+ 39. times: ms/step of the bf16 only_image and dim11 steps (the presets the port moves
+     to ``"pallas"``) and sfm (which keeps ``"xla"``) with ``sampler="pallas"`` and
+     ``"xla"``, in 8 rounds of 5 steps each way, the first way alternating, with each
+     round's paired difference and their median; each one's launches, busy share and the
+     smoothness and (on a "pallas" preset) the sampler kernels' device time a step from
+     ``profile_step``.
 The GPU machine has no ``h5py``, so the smoke cannot write the DeMoN HDF5 files that the
 split_training, depth_then_cam, on_demon and depth_then_cam_lr CLIs read
 (``data/demon.py``): phases 15, 19, 33 and 34 feed the CLIs' train functions batches of
 synthetic scenes, augmented and preprocessed by
 ``data/demon.py``'s own ``augment`` and ``preprocess``; the CPU tests run the CLIs on an
-HDF5 file.
+HDF5 file. The colon-pair CLIs read JPEGs, so phase 37 runs them on files.
 The line before the last is one JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``. There is no CPU path: without CUDA it exits non-zero.
 TF32 is off throughout, so the float32 checks are float32 and not TF32.
@@ -229,6 +257,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import tempfile
 import time
@@ -308,10 +337,12 @@ from tf_depth_estimation_torch.train.experiments import (
     depth_only,
     depth_then_cam,
     depth_then_cam_lr,
+    dim11,
     distill_turbo,
     eval_harness,
     on_demon,
     optflow_combine,
+    optflow_family,
     split_training,
 )
 from tf_depth_estimation_torch.train.profile_step import demon_batch, plain_sig, plain_smoothness
@@ -465,6 +496,36 @@ DEMON_PER_STEP = {"on_demon": {"smoothness_fwd": 1, "smoothness_bwd": 1},
                         "bilinear_sample_bwd": 1},
             "lr_gt": {"smoothness_fwd": 1, "smoothness_bwd": 1, "bilinear_sample": 1,
                       "bilinear_sample_bwd": 1, "sig_fwd": 1, "sig_bwd": 1}}
+# the colon-pair families (train/experiments/optflow_family.py and dim11.py defaults):
+# optflow_family's five modes on 240x720 JPEG pairs resized to 224x480, dim11 on 224x224
+# pairs in the dim11 layout, batch 10, bf16; 5 steps each
+OF_HEIGHT, OF_WIDTH, OF_READ, OF_BATCH, OF_STEPS = 224, 480, (240, 720), 10, 5
+D11_HW = (224, 224)
+COLON_MODES = ("only_image", "optflow_only", "optflow3", "pre", "sfm", "dim11")
+# the warps of a step: only_image and dim11 4 depth warps, optflow_only 4 flow warps, sfm
+# 4 depth warps that feed only the record (under no_grad); optflow3's data_weight is 0, so
+# it warps nothing
+COLON_WARPS = {"only_image": 4, "optflow_only": 4, "optflow3": 0, "pre": 0, "sfm": 4,
+               "dim11": 4}
+# launches a step: one smoothness group call each way in every mode; one sampler group
+# call each way where the preset's sampler is "pallas" (only_image, optflow_only, dim11);
+# sfm keeps JAX's "xla", so its 4 forward-only warps are plain samplings
+_SMOOTH = {"smoothness_fwd": 1, "smoothness_bwd": 1}
+_SAMPLE = {"bilinear_sample": 1, "bilinear_sample_bwd": 1}
+COLON_PER_STEP = {"only_image": {**_SMOOTH, **_SAMPLE}, "optflow_only": {**_SMOOTH, **_SAMPLE},
+                  "optflow3": _SMOOTH, "pre": _SMOOTH,
+                  "sfm": {**_SMOOTH, "plain_samples": COLON_WARPS["sfm"]},
+                  "dim11": {**_SMOOTH, **_SAMPLE}}
+# the maps of a step's smoothness group, every one an eligible C=1 map: the 4 heads,
+# optflow_only's flow x and y (channel views of the 3-channel heads), and optflow3's and
+# sfm's 3-channel heads as their 12 channel views
+COLON_SMOOTH_MAPS = {"only_image": 4, "optflow_only": 8, "optflow3": 12, "pre": 4,
+                     "sfm": 12, "dim11": 4}
+# the colon-pair presets whose sampler is decided by the turns below: the two the port
+# moves to "pallas" (only_image, dim11) and sfm, which keeps JAX's "xla" while its turns
+# disagree between runs (optflow_only is JAX's own "pallas" and is not timed)
+COLON_TIMED = ("optflow_family_only_image", "dim11", "optflow_family_sfm")
+COLON_ROUNDS, COLON_ROUND_STEPS = 8, 5
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32, PEAK_BF16, PEAK_HBM = 67e12, 989e12, 3.35e12
 PEAK_INT8 = 1979e12
@@ -1014,8 +1075,10 @@ def phase_smoothness(device, smi: str) -> dict:
     """The smoothness kernels vs the plain term. Single maps (a group of one): forward
     (float32 and float64 plain), backward (autograd of the plain term, and the gather
     formula), and the same bits twice. Whole steps' groups (config 4's 12 maps, config
-    2's 4): total and terms against the plain terms in float32 and float64, each leaf's
-    gradient against autograd of the plain group, and the same bits twice."""
+    2's 4, optflow3's 12 channel views of its 3-channel heads, optflow_only's 8 flow
+    planes): total and terms against the plain terms in float32 and float64, each leaf's
+    gradient against autograd of the plain group, and the same bits twice; optflow3's
+    total also against the f64 plain term of the 3-channel maps themselves."""
     worst = {"fwd": 0.0, "bwd_rel": 0.0}
     for name, x in smooth_cases(device).items():
         got, grad = _smooth_grad(smoothness_fused, x)
@@ -1041,7 +1104,7 @@ def phase_smoothness(device, smi: str) -> dict:
             raise AssertionError(f"smoothness {name}: beyond its tolerances")
         worst["fwd"] = max(worst["fwd"], err)
         worst["bwd_rel"] = max(worst["bwd_rel"], gerr / scale if scale else 0.0)
-    for config in ("optflow_combine", "depth_only"):
+    for config in ("optflow_combine", "depth_only", "optflow3", "optflow_only"):
         leaves, maps, coefs = step_smooth_group(config, device)
         got = _smooth_group_run(smoothness_fused_group, leaves, maps, coefs)
         got2 = _smooth_group_run(smoothness_fused_group, leaves, maps, coefs)
@@ -1065,6 +1128,13 @@ def phase_smoothness(device, smi: str) -> dict:
               f"{TOL_SMOOTH_FWD:.0e}); each leaf's gradient within {gerr:.3e} x its |g| max "
               f"of autograd of the plain group (tolerance {TOL_SMOOTH_BWD:.0e}); two runs "
               f"bit-equal [{smi}]")
+        if config == "optflow3":   # the views' total against the 3-channel maps' terms
+            whole = sum(c * 3 * second_order_smoothness(leaf.detach().double().permute(
+                0, 2, 3, 1)).item() for c, leaf in zip(coefs[::3], leaves))
+            total_err = max(total_err, _rel(got[0].item(), whole))
+            print(f"kernel smoothness group optflow3: total {got[0].item():.7f} against "
+                  f"the f64 plain term of the four 3-channel maps {whole:.7f}, rel err "
+                  f"{_rel(got[0].item(), whole):.3e} (rtol {TOL_SMOOTH_FWD:.0e}) [{smi}]")
         if max(err, err64, total_err) > TOL_SMOOTH_FWD or gerr > TOL_SMOOTH_BWD:
             raise AssertionError(f"smoothness group {config}: beyond its tolerances")
         worst["fwd"] = max(worst["fwd"], (got[0] - ref[0]).abs().item())
@@ -1143,24 +1213,39 @@ def step_smooth_group(config: str, device):
     """(leaves, maps, coefs) of a step's smoothness group, as the step's heads reach the
     loss: config 2's 4 depth heads (NCHW [B,1,H,W] viewed NHWC); config 4's depth heads
     and both channels of its flow heads ([B,2,H,W] viewed NHWC), at each of 4 scales; each
-    map at its scale's coefficient, smooth_weight / 2**s. The maps are views of the
-    leaves."""
+    map at its scale's coefficient, smooth_weight / 2**s. ``optflow3``: sfm's 3-channel
+    linear heads ([B,3,H,W] viewed NHWC) as their 3 channel views at a third of it each,
+    as ``losses/pipelines.py:_smooth_loss`` routes them (12 maps); ``optflow_only``:
+    channels 0 and 1 of the same heads, flow x and y (8 maps); both at 224x480, B=10.
+    The maps are views of the leaves."""
     g = np.random.RandomState(SEED + 7)
-    flow = config == "optflow_combine"
-    B, H, W = (C4_BATCH, C4_HEIGHT, C4_WIDTH) if flow else (C2_BATCH, C2_HEIGHT, C2_WIDTH)
-    weight = (LossWeights.optflow_combine() if flow else LossWeights.depth_only()).smooth_weight
+    weight = getattr(LossWeights, config)().smooth_weight
+    B, H, W = (C2_BATCH, C2_HEIGHT, C2_WIDTH) if config == "depth_only" else \
+        (C4_BATCH, C4_HEIGHT, C4_WIDTH)
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device).requires_grad_(True)
     leaves, maps, coefs = [], [], []
     for s in range(4):
-        h, w = H >> s, W >> s
+        h, w, c = H >> s, W >> s, weight / 2**s
+        if config in ("optflow3", "optflow_only"):
+            heads = t(g.randn(B, 3, h, w))
+            leaves.append(heads)
+            views = heads.permute(0, 2, 3, 1)
+            if config == "optflow3":
+                maps += [views[..., k:k + 1] for k in range(3)]
+                coefs += [c / 3] * 3
+            else:
+                maps += [views[..., 0:1], views[..., 1:2]]
+                coefs += [c] * 2
+            continue
         depth = t(g.uniform(0, 4, (B, 1, h, w)))
         leaves.append(depth)
         maps.append(depth.permute(0, 2, 3, 1))
-        if flow:
+        coefs.append(c)
+        if config == "optflow_combine":
             heads = t(g.randn(B, 2, h, w))
             leaves.append(heads)
             maps += [heads.permute(0, 2, 3, 1)[..., 0:1], heads.permute(0, 2, 3, 1)[..., 1:2]]
-        coefs += [weight / 2**s] * (3 if flow else 1)
+            coefs += [c] * 2
     return leaves, maps, coefs
 
 
@@ -2880,6 +2965,238 @@ def phase_demon_times(device, smi: str) -> dict:
     return out
 
 
+# ---- the colon-pair families: optflow_family's five modes and dim11 --------------------
+
+def write_dim11_dataset(root: str, batch: int = OF_BATCH, hw=D11_HW) -> tuple:
+    """The dim11 layout (ref ``imageselect_Dataloader_optflow_dim11.py``) of a synthetic
+    colon pair dataset at ``hw`` with ``batch`` training pairs: each ``_cam.txt`` holds 6
+    raw values, fx fy cx cy and 2 unused, and the depths lie in a directory of their own.
+    Returns (the dataset's directory, the depths' directory)."""
+    data = write_colon_pair_dataset(os.path.join(root, "dim11"), num_frames=2 * batch,
+                                    H=hw[0], W=hw[1], seed=SEED + 1)
+    depth_dir = os.path.join(root, "dim11_depth")
+    os.makedirs(depth_dir)
+    for name in sorted(os.listdir(os.path.join(data, "seq0"))):
+        path = os.path.join(data, "seq0", name)
+        if name.endswith("_cam.txt"):
+            K = np.loadtxt(path, delimiter=",").reshape(3, 3)
+            with open(path, "w") as f:
+                f.write(" ".join(str(float(v)) for v in (K[0, 0], K[1, 1], K[0, 2],
+                                                          K[1, 2], 0.0, 0.0)))
+        elif name.endswith("_z.bin"):
+            shutil.move(path, depth_dir)
+    return data, depth_dir
+
+
+@contextlib.contextmanager
+def smooth_groups(record: list):
+    """Within the block each smoothness group call of the loss pipelines first appends
+    (maps, eligible C=1 maps) to ``record``: a reading of the group's make-up."""
+    saved = pipelines.smoothness_fused_group
+
+    def group(maps, coefs):
+        record.append((len(maps), sum(m.shape[-1] == 1 and m.shape[1] >= 3
+                                      and m.shape[2] >= 3 for m in maps)))
+        return saved(maps, coefs)
+
+    pipelines.smoothness_fused_group = group
+    try:
+        yield
+    finally:
+        pipelines.smoothness_fused_group = saved
+
+
+def colon_cli(mode: str, device, dtype: str, *, batch: int = OF_BATCH,
+              height: int = None, width: int = None, read_hw=OF_READ, steps: int = 1,
+              dataset: str = "", depth_dir: str = None, ckpt: str = "") -> tuple:
+    """(the CLI module, its arguments) of a colon-pair ``mode``: ``optflow_family --mode
+    mode`` reading ``read_hw`` pairs resized to ``height`` x ``width`` (224x480 where None),
+    or ``dim11`` at ``height`` x ``width`` (224x224)."""
+    common = ["--dataset_dir", dataset, "--checkpoint_dir", ckpt, "--batch_size",
+              str(batch), "--max_steps", str(steps), "--summary_freq", "1",
+              "--save_latest_freq", str(steps), "--dtype", dtype, "--device", str(device),
+              "--seed", str(SEED)]
+    if mode == "dim11":
+        h, w = height or D11_HW[0], width or D11_HW[1]
+        return dim11, dim11.parse_args(common + [
+            "--image_height", str(h), "--image_width", str(w)]
+            + (["--depth_dir", depth_dir] if depth_dir else []))
+    h, w = height or OF_HEIGHT, width or OF_WIDTH
+    return optflow_family, optflow_family.parse_args(common + [
+        "--mode", mode, "--image_height", str(read_hw[0]), "--image_width", str(read_hw[1]),
+        "--resized_height", str(h), "--resized_width", str(w)])
+
+
+def phase_colon(device, root: str, mode: str, dataset: str, *, depth_dir: str = None,
+                height: int = None, width: int = None, read_hw=OF_READ,
+                batch: int = OF_BATCH, steps: int = OF_STEPS, dtype: str = "bfloat16",
+                smi: str = "") -> dict:
+    """A colon-pair ``mode`` for ``steps`` steps through its CLI's ``train`` and
+    ``batches`` (the JPEG reader), with the launch counts of each step and the make-up of
+    each smoothness group; every loss component finite; the checkpoint read back into its
+    model (``dispnet_from_variables`` finds the variant, or the full-resolution
+    DepthPoseNet) with a finite eval forward. Returns the per-step counts, the groups,
+    the seconds and the checkpoint's variables."""
+    ckpt = os.path.join(root, f"colon_{mode}")
+    cli, args = colon_cli(mode, device, dtype, batch=batch, height=height, width=width,
+                          read_hw=read_hw, steps=steps, dataset=dataset,
+                          depth_dir=depth_dir, ckpt=ckpt)
+    log, groups = [], []
+    t0 = time.perf_counter()
+    with smooth_groups(groups):
+        state, _ = cli.train(args, cli.loss_weights(args), cli.make_state(args),
+                             _counting(cli.batches(args), log))
+    per_step = _per_step(log, read_counts())
+    seconds = time.perf_counter() - t0
+    keys = [k for k in ("total", "depth", "smooth", "pixel", "optflow", "exp")
+            if k in _records(ckpt, ("total",))[0]]
+    records = _records(ckpt, keys)
+    if state.step != steps or len(records) != steps:
+        raise AssertionError(f"{mode}: step {state.step}, records {records}")
+    for r, n, grp in zip(records, per_step, groups):
+        print(f"{mode} step {r['step']}: " + ", ".join(f"{k} {r[k]:.4f}" for k in keys)
+              + f"; launches {n}; smoothness group {grp[0]} maps, {grp[1]} of them "
+              f"eligible C=1 maps [{smi}]")
+    variables, meta = load_variables_npz(os.path.join(ckpt, f"model-{steps}.npz"))
+    w = cli.loss_weights(args)
+    h, w = w.height, w.width
+    x = next(iter(cli.batches(args)))
+    pair = torch.cat([x["tgt_image"], x["src_image"]], -1).permute(0, 3, 1, 2)
+    if mode == "dim11":
+        model = depth_pose_from_variables(variables, device=device)
+        with torch.no_grad():
+            disps, pose, masks = model(pair)
+        outs, want = [*disps, pose, *masks], model.full_resolution
+    else:
+        model = dispnet_from_variables(variables, device=device)
+        _, variant, in_ch, _ = optflow_family.MODES[mode]
+        with torch.no_grad():
+            outs = model(pair if in_ch == 6 else pair[:, :3])
+        want = model.variant == variant() and outs[0].shape == (
+            batch, variant().head_channels, h, w)
+    if not want or not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError(f"{mode} checkpoint step {meta.get('step')}: "
+                             f"{[tuple(o.shape) for o in outs]} or non-finite")
+    print(f"{mode}: {steps} steps ({dtype}, {h}x{w}, batch {batch}) through the CLI's "
+          f"train in {seconds:.1f} s host clock; every loss component finite; "
+          f"model-{steps}.npz read back, eval forward finite [{smi}]")
+    return {"per_step": per_step, "groups": groups, "seconds": seconds,
+            "variables": variables}
+
+
+def phase_sfm_serving(device, variables: dict, *, height: int = OF_HEIGHT,
+                      width: int = OF_WIDTH, batch: int = 8, smi: str = "") -> dict:
+    """``DepthPredictor(variant=sfm)`` over the sfm mode's checkpoint: the module forward
+    (``uses_fast_path`` false: linear 3-channel heads, nothing to fold) answers requests
+    of ``batch``, 5 and 1 frames with channel 0, in bf16 (the default; finite, its
+    difference from the f32 module printed) and in float32 (within phase 4's rtol = atol
+    of the f32 module forward's channel 0)."""
+    frames = _frames(batch, height, width)
+    model = dispnet_from_variables(variables, device=device)
+    with torch.no_grad():
+        ref = model(torch.from_numpy(frames).to(device).permute(0, 3, 1, 2).float())[0]
+    ref = ref[:, 0].cpu().numpy()
+    ref = np.concatenate([ref, ref[:5], ref[:1]], 0)
+    got = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        pred = DepthPredictor(variables["params"], variables["batch_stats"], height=height,
+                              width=width, variant=DispNetVariant.sfm(), batch_size=batch,
+                              dtype=dtype, device=device)
+        if pred.uses_fast_path:
+            raise AssertionError("DepthPredictor(variant=sfm) took the folded forward")
+        got[dtype] = np.concatenate([pred.predict_array(frames[:n]) for n in (batch, 5, 1)])
+        if got[dtype].shape != (batch + 6, height, width) or not np.isfinite(got[dtype]).all():
+            raise AssertionError(f"sfm serving {dtype}: {got[dtype].shape} or non-finite")
+    bf16 = np.abs(got[torch.bfloat16] - ref)
+    f32_ok = np.allclose(got[torch.float32], ref, rtol=TOL_FORWARD, atol=TOL_FORWARD)
+    print(f"serving sfm DispNet through DepthPredictor's module forward ({height}x{width}, "
+          f"requests of {batch}, 5, 1, channel 0 of heads reaching "
+          f"{float(np.abs(ref).max()):.3f}): bf16 finite, max abs err {bf16.max():.3e}, "
+          f"mean {bf16.mean():.3e} to the f32 module forward; f32 within rtol = atol "
+          f"{TOL_FORWARD:.0e} of it: {f32_ok} [{smi}]")
+    if not f32_ok:
+        raise AssertionError("sfm serving in float32 differs from the module forward")
+    return {"frames": 2 * (batch + 6), "bf16_max_abs_err": float(bf16.max())}
+
+
+def phase_colon_parity(device, smi: str) -> dict:
+    """One f32 step of optflow_only (kernel #4 and #2), optflow3 (#2 on 12 channel views)
+    and dim11 (#4 and #2 at 224x224 .. 28x28 on [-0.5, 0.5] pixels) with the kernels
+    against one with the plain sampler and smoothness term, from one init (the CLI's
+    seeded one) and batch (``profile_step``'s pair batch at 224x480, its dim11 batch at
+    224x224; B=10); the bf16 total against the f32 one."""
+    batches = {"optflow_only": profile_step.pair_batch(OF_BATCH, OF_HEIGHT, OF_WIDTH,
+                                                       SEED + 20, device),
+               "dim11": profile_step.dim11_batch(OF_BATCH, *D11_HW, SEED + 21, device)}
+    batches["optflow3"] = batches["optflow_only"]
+    out = {}
+    for mode, batch in batches.items():
+        runs = {}
+        for name, dtype in (("kernel", "float32"), ("plain", "float32"),
+                            ("kernel_bf16", "bfloat16")):
+            cli, args = colon_cli(mode, device, dtype)
+            w = cli.loss_weights(args)
+            state = cli.make_state(args)
+            if name == "plain":
+                step = _plain_terms(cli.make_step(args, dataclasses.replace(w, sampler="xla")))
+            else:
+                step = cli.make_step(args, w)
+            state, metrics = step(state, batch)
+            runs[name] = ({k: float(v) for k, v in metrics.items()},
+                          {k: p.detach() for k, p in state.model.named_parameters()})
+            del state
+        label = "dim11" if mode == "dim11" else f"optflow_family --mode {mode}"
+        out[mode] = _compare_steps(label, runs, 2e-4, smi)
+    return out
+
+
+def phase_colon_times(device, smi: str) -> dict:
+    """ms/step of the bf16 steps of COLON_TIMED with ``sampler="pallas"`` (the sampler
+    kernels) and ``"xla"`` (the plain sampler), the loss kernels in both, on one state and
+    batch in COLON_ROUNDS rounds of COLON_ROUND_STEPS steps each way, the first way
+    alternating; each round's paired difference (kernel minus plain) and their median,
+    the figure a preset's choice reads; then each one's launches, busy share and the
+    device time a step of the smoothness kernels, and of the sampler kernels where the
+    preset is "pallas", from ``profile_step``."""
+    out = {}
+    for config in COLON_TIMED:
+        cli, flags = profile_step.COLON_CLIS[config]
+        w, state, _, batch = profile_step.CONFIGS[config](None, None, None, device, "kernel")
+        args = cli.parse_args(list(flags))
+        steps = {s: cli.make_step(args, dataclasses.replace(w, sampler=s))
+                 for s in ("pallas", "xla")}
+        times = {k: [] for k in steps}
+        for r in range(COLON_ROUNDS):
+            for name in list(steps)[::1 - 2 * (r % 2)]:
+                times[name].append(time_ms(lambda: steps[name](state, batch),
+                                           COLON_ROUND_STEPS, warmup=1))
+        del state
+        B = batch["tgt_image"].shape[0]
+        diffs = [p - x for p, x in zip(times["pallas"], times["xla"])]
+        row = {"preset": w.sampler, "diffs": diffs,
+               "median_diff": statistics.median(diffs)}
+        for name, ts in times.items():
+            ms = sum(ts) / len(ts)
+            row[name] = {"ms": ms, "turns": ts}
+            print(f"time training step bf16 {config} ({w.height}x{w.width}, B={B}) "
+                  f"sampler={name}{' (the preset)' if name == w.sampler else ''}: "
+                  f"{ms:.2f} ms/step (rounds {', '.join(f'{t:.2f}' for t in ts)}; "
+                  f"spread {max(ts) - min(ts):.2f} ms), {B / ms * 1e3:.1f} frames/s [{smi}]")
+        print(f"time {config}: paired differences pallas - xla "
+              f"{', '.join(f'{d:+.2f}' for d in diffs)} ms; median {row['median_diff']:+.2f}, "
+              f"mean {sum(diffs) / len(diffs):+.2f} ms/step [{smi}]")
+        prof = profile_step.profile(steps=3, device=device, config=config, top=0)
+        row.update(launches=prof["launches"], busy=prof["kernel_ms"] / prof["wall_ms"],
+                   sampler_ms=kind_ms(prof, "sampler kernels") if w.sampler == "pallas"
+                   else None, smooth_ms=kind_ms(prof, "smoothness kernels"))
+        print(f"profile {config} (sampler={w.sampler}): {prof['kernel_ms']:.2f} ms of "
+              f"kernels in {prof['launches']} launches a step (busy {row['busy']:.1%}), "
+              f"sampler kernels {fmt_ms(row['sampler_ms'])}, smoothness kernels "
+              f"{fmt_ms(row['smooth_ms'])} [{smi}]")
+        out[config] = row
+    return out
+
+
 def reset_counts() -> None:
     fused_tail.launches = bilinear_sample.launches = bilinear_sample.backward_launches = 0
     smoothness_fused.launches = smoothness_fused.backward_launches = 0
@@ -3112,6 +3429,35 @@ def main() -> None:
     demon_times = phase_demon_times("cuda", info["smi"])
     stamp("L/R step parity and the DeMoN-stream times")
 
+    colon, colon_counts = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pairs = write_dataset(tmp)   # 240x720 JPEG pairs, 10 in the train split
+        dim11_data, dim11_depth = write_dim11_dataset(tmp)
+        for mode in COLON_MODES:
+            reset_counts()  # a main path: a colon-pair mode through its CLI
+            d11 = mode == "dim11"
+            run = phase_colon("cuda", tmp, mode, dim11_data if d11 else pairs,
+                              depth_dir=dim11_depth if d11 else None, smi=info["smi"])
+            colon_counts[mode] = read_counts()
+            _check_per_step(mode, run["per_step"], COLON_PER_STEP[mode])
+            if run["groups"] != [(COLON_SMOOTH_MAPS[mode],) * 2] * OF_STEPS:
+                raise AssertionError(f"{mode}: smoothness groups (maps, eligible C=1 maps) "
+                                     f"{run['groups']}, not {COLON_SMOOTH_MAPS[mode]} a step")
+            colon[mode] = run
+        reset_counts()  # a main path: the sfm checkpoint served through the module forward
+        phase_sfm_serving("cuda", colon["sfm"]["variables"], smi=info["smi"])
+        sfm_served = read_counts()
+        if any(sfm_served.values()):
+            raise AssertionError(f"sfm serving launched {sfm_served}")
+    for mode, counts in colon_counts.items():
+        print(f"{mode} launches: {counts} in {OF_STEPS} steps, {COLON_PER_STEP[mode]} a "
+              f"step and nothing else; smoothness groups of {COLON_SMOOTH_MAPS[mode]} C=1 "
+              f"maps [{info['smi']}]")
+    stamp("the colon-pair families")
+    phase_colon_parity("cuda", info["smi"])
+    colon_times = phase_colon_times("cuda", info["smi"])
+    stamp("colon-pair step parity and times")
+
     kernels = [{
         "name": "fused_tail", "route": "cuda",
         "source": "tf_depth_estimation_torch/csrc/fused_tail.cu",
@@ -3160,6 +3506,19 @@ def main() -> None:
         "lr_group_plain_ms": lr_sample_errs["plain"]["ms"],
         "lr_group_bound_ms": lr_sample_errs["bound_ms"],
         "lr_full_device_ms": demon_times["lr_full"]["kernel"]["sampler_ms"],
+        # the colon-pair runs on a "pallas" preset (5 steps each): forward + backward
+        # launches; ms/step of the timed presets' bf16 steps with sampler="pallas" and
+        # "xla" (8 rounds of 5) and the median of the rounds' paired differences, and the
+        # sampler kernels' device time a step (profile_step)
+        **{f"{mode}_launches": colon_counts[mode]["bilinear_sample"]
+           + colon_counts[mode]["bilinear_sample_bwd"]
+           for mode in ("only_image", "optflow_only", "dim11")},
+        **{f"{config}_step_ms": {**{k: colon_times[config][k]["ms"]
+                                    for k in ("pallas", "xla")},
+                                 "median_diff": colon_times[config]["median_diff"]}
+           for config in COLON_TIMED},
+        **{f"{config}_device_ms": colon_times[config]["sampler_ms"]
+           for config in COLON_TIMED},
     }, {
         # forward and backward of a config-4 step's group (12 maps, B=10, 224x480 down to
         # 28x60); launches: forward + backward in the config-4 run; per_map_loop_ms: the
@@ -3180,6 +3539,11 @@ def main() -> None:
         # forward + backward in the config-5 and L/R runs (5 steps each)
         **{f"{c}_launches": demon[c]["smoothness_fwd"] + demon[c]["smoothness_bwd"]
            for c in DEMON_PER_STEP},
+        # forward + backward in the colon-pair runs (5 steps each; optflow3 and sfm 12
+        # channel views a group, optflow_only 8 flow planes)
+        **{f"{m}_launches": colon_counts[m]["smoothness_fwd"]
+           + colon_counts[m]["smoothness_bwd"] for m in COLON_MODES},
+        **{f"{config}_device_ms": colon_times[config]["smooth_ms"] for config in COLON_TIMED},
     }, {
         # forward and backward of phase 2's group of a step (4 pairs, B=1, 192x256 down to
         # 24x32, delta 2); launches: forward + backward in both phases' runs;

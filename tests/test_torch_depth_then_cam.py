@@ -74,9 +74,10 @@ def _t(batch):
 # ---- presets ---------------------------------------------------------------------------
 
 def test_presets_are_jaxs_but_config_3s_sampler():
-    """Every preset of the port equals the JAX package's, field by field, except three
-    ``sampler`` fields where JAX keeps "xla": ``depth_then_cam()``'s "fused", and the L/R
-    family's ``depth_then_cam_lr()`` and ``gtdepth_gtcam()``, "pallas"."""
+    """Every preset of the port equals the JAX package's, field by field, except five
+    ``sampler`` fields where JAX keeps "xla": ``depth_then_cam()``'s "fused", and
+    "pallas" in the L/R family's ``depth_then_cam_lr()`` and ``gtdepth_gtcam()`` and the
+    colon-pair family's ``dim11()`` and ``only_image()``."""
     from tf_depth_estimation_tpu.losses.config import LossWeights as JLossWeights
 
     names = [k for k, v in vars(JLossWeights).items() if isinstance(v, classmethod)]
@@ -89,7 +90,9 @@ def test_presets_are_jaxs_but_config_3s_sampler():
         diffs.update({(name, k): (ours[k], ref[k]) for k in ref if ours[k] != ref[k]})
     assert diffs == {("depth_then_cam", "sampler"): ("fused", "xla"),
                      ("depth_then_cam_lr", "sampler"): ("pallas", "xla"),
-                     ("gtdepth_gtcam", "sampler"): ("pallas", "xla")}
+                     ("gtdepth_gtcam", "sampler"): ("pallas", "xla"),
+                     ("dim11", "sampler"): ("pallas", "xla"),
+                     ("only_image", "sampler"): ("pallas", "xla")}
 
 
 # ---- the loss --------------------------------------------------------------------------

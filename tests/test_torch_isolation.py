@@ -7,7 +7,9 @@ DepthPoseNet, the nine TurboDepthNet presets' folded forward and turbo serving, 
 tensor-core probes' plain versions (the probes' entry points refuse to run without a card),
 distillation with its step parity and the device cache, ``depth_only --turbo`` with
 depth serving from a checkpoint directory and through the module forward, and the
-DeMoN-stream families: config 5 with its checkpoint served, and both L/R modes.
+DeMoN-stream families: config 5 with its checkpoint served, and both L/R modes, and the
+colon-pair families: optflow_family's five modes and dim11, with the sfm checkpoint
+served through the module forward.
 
 The children run beside the other pytest workers, so each keeps PyTorch to two threads:
 one child with every path and PyTorch's default of a thread per core took ~4x its time
@@ -53,13 +55,31 @@ served = chip_smoke.phase_serving(variables, "cpu", height=64, width=96, batch=8
 assert fwd["launches"] == 0 and served["frames"] == 14 and fused_tail.launches == 0, (
     fwd, served)
 """,
+    # config 4, then the colon-pair families on the same pairs (and dim11's layout): on
+    # the CPU every warp is a plain sampling (4 a step in only_image, optflow_only, sfm
+    # and dim11), and no kernel launches
     "optflow_combine": r"""
 with tempfile.TemporaryDirectory() as tmp:
     dataset = chip_smoke.write_dataset(tmp, batch=2, read_hw=(48, 96))
     trained = chip_smoke.phase_training("cpu", dataset, height=32, width=64,
                                         read_hw=(48, 96), batch=2, steps=1, dtype="float32")
-assert trained["steps"] == 1 and bilinear_sample.launches == 0, trained
-assert smoothness_fused.launches == 0
+    assert trained["steps"] == 1 and bilinear_sample.launches == 0, trained
+    assert smoothness_fused.launches == 0
+    d11, depth_dir = chip_smoke.write_dim11_dataset(tmp, batch=2, hw=(32, 64))
+    for mode in chip_smoke.COLON_MODES:
+        run = chip_smoke.phase_colon("cpu", tmp, mode, d11 if mode == "dim11" else dataset,
+                                     depth_dir=depth_dir if mode == "dim11" else None,
+                                     height=32, width=64, read_hw=(48, 96), batch=2,
+                                     steps=1, dtype="float32")
+        n = run["per_step"][0]
+        assert n["plain_samples"] == chip_smoke.COLON_WARPS[mode] and not any(
+            v for k, v in n.items() if k != "plain_samples"), (mode, n)
+        assert run["groups"] == [(chip_smoke.COLON_SMOOTH_MAPS[mode],) * 2], run["groups"]
+        if mode == "sfm":
+            chip_smoke.reset_counts()
+            served = chip_smoke.phase_sfm_serving("cpu", run["variables"], height=32,
+                                                  width=64, batch=8)
+            assert served["frames"] == 28 and not any(chip_smoke.read_counts().values())
 """,
     "depth_only": r"""
 with tempfile.TemporaryDirectory() as tmp:
@@ -216,7 +236,9 @@ def test_every_port_module_is_imported_by_the_child():
             "tf_depth_estimation_torch.data.demon_v1",
             "tf_depth_estimation_torch.models.composite",
             "tf_depth_estimation_torch.train.experiments.on_demon",
-            "tf_depth_estimation_torch.train.experiments.depth_then_cam_lr"} <= names
+            "tf_depth_estimation_torch.train.experiments.depth_then_cam_lr",
+            "tf_depth_estimation_torch.train.experiments.optflow_family",
+            "tf_depth_estimation_torch.train.experiments.dim11"} <= names
 
 
 def test_no_port_file_names_jax_in_an_import():

@@ -1,5 +1,6 @@
-"""The packed-pair colon loader (port of ``PairDepthDataset`` in
-``tf_depth_estimation_tpu/data/colon.py``, ref ``imageselect_Dataloader_optflow.py``).
+"""The packed-pair colon loaders (port of ``PairDepthDataset`` and ``Dim11Dataset`` in
+``tf_depth_estimation_tpu/data/colon.py``, ref ``imageselect_Dataloader_optflow.py`` and
+``imageselect_Dataloader_optflow_dim11.py``).
 
 Each ``<split>.txt`` line ``subfolder id1 id2`` names a side-by-side pair JPEG
 ``id1_id2.jpg`` (width 2x: target | source), a raw float32 depth
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -97,17 +99,25 @@ class PairDepthDataset:
                       [0, 0, 1]]
         return out
 
+    def pixels(self, seq: np.ndarray) -> np.ndarray:
+        """The resized pair's pixels as the batch holds them: raw 0..255 here (the
+        reference does not divide by 255, imageselect_Dataloader_optflow.py:129)."""
+        return seq
+
+    def camera(self, path: str) -> dict:
+        """The batch's camera entries from a ``_cam.txt`` (a 3x3 CSV here)."""
+        K = np.loadtxt(path, delimiter=",", dtype=np.float32).reshape(3, 3)
+        return {"intrinsics": self.intrinsics_pyramid(K)}
+
     def __getitem__(self, i: int):
         e = self.entries[i]
         rh, rw = self.resized_height, self.resized_width
-        seq = _resize_bilinear_np(_decode_jpeg(e["image"]), (rh, rw * 2))
-        # the reference does not divide by 255 here (imageselect_Dataloader_optflow.py:129)
+        seq = self.pixels(_resize_bilinear_np(_decode_jpeg(e["image"]), (rh, rw * 2)))
         # the label is stored at the native size and area-resized to the training size
         # (the reference's set_shape without a resize crashes for differing sizes; the
         # dim11 loader's area-resize is the evident intent)
         label = _read_bin_depth(e["depth"], self.image_height, self.image_width)
         label = _resize_area_np(label, (rh, rw))
-        K = np.loadtxt(e["cam"], delimiter=",", dtype=np.float32).reshape(3, 3)
         with open(e["proj"]) as f:
             # 34 tokens: two 4x4s, m_scale, a trailing pad value
             tokens = np.array(f.read().split(), dtype=np.float32)[:34]
@@ -115,7 +125,35 @@ class PairDepthDataset:
             "tgt_image": seq[:, :rw].astype(np.float32),
             "src_image": seq[:, rw:].astype(np.float32),
             "label": label.astype(np.float32),
-            "intrinsics": self.intrinsics_pyramid(K),
+            **self.camera(e["cam"]),
             "tgt2src_projs": tokens[:32].reshape(2, 4, 4).astype(np.float32),
             "m_scale": np.float32(tokens[32]),
         }
+
+
+@dataclasses.dataclass
+class Dim11Dataset(PairDepthDataset):
+    """The dim11 variant (ref ``imageselect_Dataloader_optflow_dim11.py``): 224x224,
+    pixels scaled to [-0.5, 0.5], depths read from ``depth_dir`` where given (by the same
+    file names), and a ``_cam.txt`` of raw values of which the first 6 (fx fy cx cy and
+    2 unused; commas or spaces) become ``cam``; no intrinsics pyramid (the CLI builds
+    it)."""
+
+    image_height: int = 224
+    image_width: int = 224
+    resized_height: int = 224
+    resized_width: int = 224
+    depth_dir: Optional[str] = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.depth_dir:
+            for e in self.entries:
+                e["depth"] = os.path.join(self.depth_dir, os.path.basename(e["depth"]))
+
+    def pixels(self, seq: np.ndarray) -> np.ndarray:
+        return seq / 255.0 - 0.5   # imageselect_Dataloader_optflow_dim11.py:128
+
+    def camera(self, path: str) -> dict:
+        with open(path) as f:
+            return {"cam": np.array(f.read().replace(",", " ").split(), np.float32)[:6]}

@@ -1,4 +1,5 @@
-"""Pinhole projection: pixel grids, unprojection by depth and projection by a 4x4.
+"""Pinhole projection: intrinsics matrices and their pyramid, pixel grids, unprojection by
+depth and projection by a 4x4.
 
 The port of ``tf_depth_estimation_tpu/geometry/camera.py`` (ref ``utils_lr.py:151-220``).
 Tensors keep the JAX package's layouts: depth [B, H, W], points [B, 4, H, W], pixel
@@ -12,6 +13,27 @@ half a pixel. Elementwise float32 arithmetic does not depend on the TF32 flags.
 from __future__ import annotations
 
 import torch
+
+
+def make_intrinsics_matrix(fx, fy, cx, cy) -> torch.Tensor:
+    """Batched [..., 3, 3] K from focal lengths and principal point (tensors of one shape;
+    ref the loaders' helper)."""
+    zero, one = torch.zeros_like(fx), torch.ones_like(fx)
+    return torch.stack([torch.stack([fx, zero, cx], -1), torch.stack([zero, fy, cy], -1),
+                        torch.stack([zero, zero, one], -1)], -2)
+
+
+def scale_intrinsics_pyramid(K: torch.Tensor, num_scales: int, x_ratio: float = 1.0,
+                             y_ratio: float = 1.0) -> torch.Tensor:
+    """[B, 3, 3] -> [B, num_scales, 3, 3]: focal lengths and principal point halved per
+    scale, times the resize ratios (``imageselect_Dataloader_optflow.py:248-262``)."""
+    ks = []
+    for s in range(num_scales):
+        f = 1.0 / 2.0**s
+        ks.append(make_intrinsics_matrix(
+            K[..., 0, 0] * f * x_ratio, K[..., 1, 1] * f * y_ratio,
+            K[..., 0, 2] * f * x_ratio, K[..., 1, 2] * f * y_ratio))
+    return torch.stack(ks, -3)
 
 
 def pixel_grid(height: int, width: int, homogeneous: bool = True,

@@ -30,8 +30,8 @@ from tf_depth_estimation_torch.train.checkpoint import load_latest_variables
 from tf_depth_estimation_torch.utils.npz import load_variables_npz
 from tf_depth_estimation_torch.weights import (
     depth_pose_from_variables,
+    load_variables,
     turbo_from_variables,
-    variables_to_state_dict,
 )
 
 
@@ -90,7 +90,7 @@ def main(argv=None):
         cls, kwargs = TurboPredictor, {"variant": variant}
     elif args.mode == "depth":
         try:
-            DispNet().load_state_dict(variables_to_state_dict(variables), strict=True)
+            load_variables(DispNet(), variables)
         except (KeyError, RuntimeError) as e:
             raise SystemExit(f"{source} does not hold depth4 DispNet weights: {e}")
         cls = DepthPredictor

@@ -25,7 +25,10 @@ from tf_depth_estimation_torch.infer.fast_turbo import fold_turbo, folded_turbo_
 from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
 from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
 from tf_depth_estimation_torch.models.turbo import TurboVariant
-from tf_depth_estimation_torch.weights import turbo_from_variables, variables_to_state_dict
+from tf_depth_estimation_torch.weights import (
+    load_variables,
+    turbo_from_variables,
+)
 
 
 def _load_frame(path: str, height: int, width: int) -> np.ndarray:
@@ -143,12 +146,15 @@ class DepthPredictor(_SingleImagePredictor):
     """Single-image disparity inference with DispNet (ref ``batch_prediction.py``).
 
     ``params`` / ``batch_stats`` are the JAX variables' collections (numpy trees, e.g.
-    from ``utils.npz.load_variables_npz``). For depth4 with batch statistics and H, W
-    divisible by 4 the forward is ``infer/fast.py`` with BN folded once here, its decoder
-    tail one CUDA kernel (``ops/fused_tail.py``); ``use_fast=None`` (the default) takes it
-    there, ``False`` forces the module's eval forward in ``dtype``, and ``True`` raises
-    where it cannot serve, as in the JAX package. depth10_flow (a flow decoder) is served
-    by the module forward. ``uses_fast_path`` says which forward runs.
+    from ``utils.npz.load_variables_npz``). For a variant with batch norm, one decoder and
+    sigmoid heads (depth4), with batch statistics and H, W divisible by 4, the forward is
+    ``infer/fast.py`` with BN folded once here, its decoder tail one CUDA kernel
+    (``ops/fused_tail.py``); ``use_fast=None`` (the default) takes it there, ``False``
+    forces the module's eval forward in ``dtype``, and ``True`` raises where it cannot
+    serve, as in the JAX package (``infer/predictor.py:211-219`` there). depth10_flow (a
+    flow decoder), sfm (3-channel linear heads; channel 0 is served) and depth4_nobn (no
+    batch norm) are served by the module forward. ``uses_fast_path`` says which forward
+    runs.
     """
 
     def __init__(self, params, batch_stats=None, *, height: int = 224, width: int = 224,
@@ -159,23 +165,23 @@ class DepthPredictor(_SingleImagePredictor):
         self.device = torch.device(device)
         v = variant or DispNetVariant.depth4()
         variables = {"params": params, "batch_stats": batch_stats or {}}
-        # every ported DispNet variant has batch norm and sigmoid heads; the folded
-        # forward has no flow decoder
-        if v.flow_decoder and use_fast:
+        # the folded forward has batch norm to fold, one decoder and sigmoid heads
+        foldable = v.use_bn and not v.flow_decoder and v.head_activation == "sigmoid"
+        if use_fast and not foldable:
             raise ValueError("use_fast=True requires a BN single-decoder sigmoid-head "
                              f"variant, not {v.name}")
-        self.uses_fast_path = not v.flow_decoder and _resolve_use_fast(
-            use_fast, batch_stats, height, width)
+        self.uses_fast_path = foldable and _resolve_use_fast(use_fast, batch_stats, height,
+                                                             width)
         if self.uses_fast_path:
             folded = fold_weights(variables, dtype=dtype, device=self.device)
             forward = lambda x: folded_forward(folded, x, disp_scaling=v.disp_scaling,
                                                min_disp=v.min_disp)[0][..., 0]
         else:
-            if not batch_stats:
+            if v.use_bn and not batch_stats:
                 raise ValueError(f"DispNet {v.name} has batch norm: its eval forward "
                                  f"needs batch_stats")
             model = DispNet(v, dtype=dtype)
-            model.load_state_dict(variables_to_state_dict(variables), strict=True)
+            load_variables(model, variables)
             model = model.to(self.device).eval()
             forward = lambda x: model(x.permute(0, 3, 1, 2).float())[0][:, 0]
         self._fwd = torch.inference_mode()(forward)
@@ -240,7 +246,7 @@ class PairPredictor:
                 return disps[0][..., 0], pose[:, 0]
         else:
             model = DepthPoseNet(full_resolution=full_resolution, dtype=dtype)
-            model.load_state_dict(variables_to_state_dict(variables), strict=True)
+            load_variables(model, variables)
             model = model.to(self.device).eval()
 
             def forward(x):

@@ -5,9 +5,10 @@ reference experiment differs only in these constants, and the classmethods repro
 entry point's block. ``sampler`` takes the JAX package's names; in the port ``"pallas"``
 selects the hand-written CUDA sampler (``ops/bilinear_sample.py``), ``"fused"`` the same
 kernels under the fused warp's eligibility rule (``ops/bilinear_sample_fused.py``) and ``"xla"`` the plain PyTorch sampler
-(``geometry/sampling.py``). Three presets differ from the JAX package's, in that field
-alone: ``depth_then_cam()`` takes ``"fused"``, and ``depth_then_cam_lr()`` and
-``gtdepth_gtcam()`` take ``"pallas"``, where JAX keeps ``"xla"``.
+(``geometry/sampling.py``). Five presets differ from the JAX package's, in that field
+alone: ``depth_then_cam()`` takes ``"fused"``, and ``depth_then_cam_lr()``,
+``gtdepth_gtcam()``, ``dim11()`` and ``only_image()`` take ``"pallas"``, where JAX keeps
+``"xla"``.
 """
 from __future__ import annotations
 
@@ -113,16 +114,28 @@ class LossWeights:
 
     @classmethod
     def dim11(cls) -> "LossWeights":
-        """``train_depth_only_dim11.py:33-41`` — 224x224 joint depth+pose."""
+        """``train_depth_only_dim11.py:33-41`` — 224x224 joint depth+pose.
+
+        ``sampler="pallas"``, where the JAX package keeps ``"xla"``: a step's 4 Euler warps
+        (B=10, so not the ``"fused"`` route's B % 8 == 0) launch the port's sampler
+        kernels once each way. A colon-pair preset takes ``"pallas"`` where the median of
+        ``chip_smoke.py``'s paired step differences (kernel minus plain sampler, phase 39)
+        over its runs is <= 0.
+        """
         return cls(height=224, width=224, max_steps=200_000,
                    smooth_weight=1.0, data_weight=0.1, depth_weight=1.0,
-                   explain_reg_weight=0.2)
+                   explain_reg_weight=0.2, sampler="pallas")
 
     @classmethod
     def only_image(cls) -> "LossWeights":
-        """``train_onlyimage.py:32-40`` — 224x480 GT-warp photometric."""
+        """``train_onlyimage.py:32-40`` — 224x480 GT-warp photometric.
+
+        ``sampler="pallas"``, where the JAX package keeps ``"xla"``: a step's 4 warps
+        launch the port's sampler kernels once each way (the rule of ``dim11()``).
+        """
         return cls(height=224, width=480, max_steps=20_000,
-                   smooth_weight=1.0, data_weight=0.1, depth_weight=1.0)
+                   smooth_weight=1.0, data_weight=0.1, depth_weight=1.0,
+                   sampler="pallas")
 
     @classmethod
     def optflow_only(cls) -> "LossWeights":
@@ -133,7 +146,12 @@ class LossWeights:
 
     @classmethod
     def sfm_multi(cls) -> "LossWeights":
-        """``train.py:32-35`` — SfMLearner-style multi-source, 224x224, batch 30."""
+        """``train.py:32-35`` — SfMLearner-style multi-source, 224x224, batch 30.
+
+        ``sampler="xla"``, as in the JAX package: a step's 4 warps feed only the record,
+        forward only, and under the rule of ``dim11()`` the step with the sampler kernel
+        was not faster on the card.
+        """
         return cls(height=224, width=224, max_steps=20_000,
                    smooth_weight=0.5, data_weight=100.0)
 

@@ -4,12 +4,13 @@ Each mirrors one reference loss graph, takes the predictions and the batch (NHWC
 the JAX package) and returns ``(total, components)``. Ported so far: ``depth_only_loss``
 and ``depth_only_val_loss`` (BASELINE config 2), ``depth_then_cam_loss`` (config 3),
 ``optflow_combine_loss`` (config 4), ``on_demon_loss`` (config 5), ``pairwise_depth_loss``
-and ``single_depth_loss`` (the two phases of ``split_training``), and ``lr_full_loss`` and
-``lr_gt_pose_loss`` (the symmetric L/R family); the others come with their experiments.
-The smoothness terms of a loss go through one call of
-``ops/smoothness.py:smoothness_fused_group`` and its sig terms through one of
-``ops/sig_l2.py:sig_l2_fused_group``, each map at its coefficient, and the warps and
-resamples of configs 3 and 4 and of the L/R family through one call of
+and ``single_depth_loss`` (the two phases of ``split_training``), ``lr_full_loss`` and
+``lr_gt_pose_loss`` (the symmetric L/R family), and the colon-pair families:
+``dim11_joint_loss``, ``only_image_loss``, ``optflow_only_loss``, ``optflow3_loss`` and
+``multi_source_loss``. The smoothness terms of a loss go through one call of
+``ops/smoothness.py:smoothness_fused_group`` (a map of C > 1 channels as its C channel
+views) and its sig terms through one of ``ops/sig_l2.py:sig_l2_fused_group``, each map at
+its coefficient, and the warps and resamples of a step through one call of
 ``geometry/sampling.py:bilinear_sample_group``: one CUDA launch each way on the GPU, the
 plain versions on the CPU.
 """
@@ -60,8 +61,16 @@ def _sig_loss(preds: Sequence[torch.Tensor], gts: Sequence[torch.Tensor],
 
 def _smooth_loss(maps: Sequence[torch.Tensor], coefs: Sequence[float]) -> torch.Tensor:
     """sum_k coefs[k] * second-order smoothness of maps[k], in one call of the kernel's
-    group wrapper."""
-    return smoothness_fused_group(maps, coefs)[0]
+    group wrapper. A map of C > 1 channels (sfm's 3-channel heads) goes as its C channel
+    views at ``coefs[k] / C``: each of the term's four means runs over B h w C values, so
+    the term is the mean of its channels' terms, and the kernel takes C = 1 maps (strided
+    views read in place)."""
+    views, view_coefs = [], []
+    for m, c in zip(maps, coefs):
+        C = m.shape[-1]
+        views += [m[..., i:i + 1] for i in range(C)] if C > 1 else [m]
+        view_coefs += [c / C] * C
+    return smoothness_fused_group(views, view_coefs)[0]
 
 
 def _smooth_coefs(w: LossWeights, n: int) -> list:
@@ -447,3 +456,162 @@ def lr_gt_pose_loss(image_left: torch.Tensor, image_right: torch.Tensor,
     return total, {"total": total, "pixel": pixel_loss, "smooth": smooth_loss,
                    "exp": exp_loss, "cam": cam_loss, "consist": consist_loss,
                    "depth": depth_loss, "sig": sig_loss}
+
+
+def dim11_joint_loss(image_left: torch.Tensor, image_right: torch.Tensor,
+                     pred_depths: Sequence[torch.Tensor], pred_poses: torch.Tensor,
+                     pred_exp_logits: Sequence[torch.Tensor], intrinsics: torch.Tensor,
+                     label: torch.Tensor, w: LossWeights):
+    """Joint depth and pose with depth supervision (ref
+    ``train_depth_only_dim11.py:207-297``), per scale: the smoothness of the raw prediction
+    divided by 2^s, the plain depth L1 times ``depth_weight`` (no 1/2^s), and the
+    photometric L1 of the right image warped with the predicted Euler pose times
+    ``data_weight`` (no 1/2^s), explainability-weighted with its cross-entropy where
+    ``explain_reg_weight`` > 0. Over ``min(len(pred_depths), w.num_scales)`` scales, the
+    warps in one sampler call. ``pred_poses`` [B, 1, 6]; ``intrinsics`` [B, S, 3, 3]."""
+    depth_loss = pixel_loss = exp_loss = 0.0
+    B = image_left.shape[0]
+    n = min(len(pred_depths), w.num_scales)
+    smooth_loss = _smooth_loss(pred_depths[:n], _smooth_coefs(w, n))
+    rights = [_area(image_right, w.scale_hw(s)) for s in range(n)]
+    coords = [projective_coords(1.0 / pred_depths[s][..., 0], pred_poses[:, 0, :],
+                                intrinsics[:, s], fmt="euler")[0] for s in range(n)]
+    warped, _ = bilinear_sample_group(rights, coords, w.sampler)
+    for s in range(n):
+        hw = w.scale_hw(s)
+        depth_loss += (_area(label, hw) - pred_depths[s]).abs().mean() * w.depth_weight
+        err = (warped[s] - _area(image_left, hw)).abs()
+        if w.explain_reg_weight > 0:
+            ref_mask = reference_explain_mask(B, w.height, w.width, s,
+                                              device=err.device)
+            exp_loss += w.explain_reg_weight * explain_reg_loss(
+                pred_exp_logits[s][..., :2], ref_mask)
+            pixel_loss += (err * _softmax_exp(pred_exp_logits[s])).mean() * w.data_weight
+        else:
+            pixel_loss += err.mean() * w.data_weight
+    total = depth_loss + smooth_loss + pixel_loss + exp_loss
+    return total, {"total": total, "depth": depth_loss, "smooth": smooth_loss,
+                   "pixel": pixel_loss, "exp": exp_loss}
+
+
+def _gt_proj_warps(image_right: torch.Tensor, pred_depths: Sequence[torch.Tensor],
+                   tgt2src_proj: torch.Tensor, intrinsics: torch.Tensor, w: LossWeights):
+    """The right image of each scale warped by 1/pred[..., 0] with the GT transform
+    ``tgt2src_proj`` [B, 4, 4] (``fmt="matrix"``), in one sampler call."""
+    n = w.num_scales
+    rights = [_area(image_right, w.scale_hw(s)) for s in range(n)]
+    coords = [projective_coords(1.0 / pred_depths[s][..., 0], tgt2src_proj,
+                                intrinsics[:, s], fmt="matrix")[0] for s in range(n)]
+    return bilinear_sample_group(rights, coords, w.sampler)[0]
+
+
+def only_image_loss(image_left: torch.Tensor, image_right: torch.Tensor,
+                    pred_depths: Sequence[torch.Tensor], tgt2src_proj: torch.Tensor,
+                    intrinsics: torch.Tensor, w: LossWeights):
+    """Photometric-only training with the GT relative transform (ref
+    ``train_onlyimage.py:130-165``): per scale the L1 of the right image warped by 1/pred
+    with the GT 4x4 times ``data_weight / 2^s``, and the smoothness of the raw
+    prediction."""
+    n = w.num_scales
+    smooth_loss = _smooth_loss(pred_depths[:n], _smooth_coefs(w, n))
+    warped = _gt_proj_warps(image_right, pred_depths, tgt2src_proj, intrinsics, w)
+    pixel_loss = 0.0
+    for s in range(n):
+        curr_left = _area(image_left, w.scale_hw(s))
+        pixel_loss += (warped[s] - curr_left).abs().mean() * w.data_weight / 2**s
+    total = pixel_loss + smooth_loss
+    return total, {"total": total, "pixel": pixel_loss, "smooth": smooth_loss}
+
+
+def optflow_only_loss(image_left: torch.Tensor, image_right: torch.Tensor,
+                      pred_flow_x: Sequence[torch.Tensor],
+                      pred_flow_y: Sequence[torch.Tensor], label: torch.Tensor,
+                      tgt2src_proj: torch.Tensor, intrinsics: torch.Tensor,
+                      w: LossWeights):
+    """Flow-only training (ref ``train_optflow_only.py:120-167``), per scale: the
+    photometric L1 of the flow warp times ``data_weight / 2^s``, the smoothness of both
+    flow components, and the L1 to the flow of the GT-depth warp's grid times
+    ``optflow_weight / 2^s``. The GT warp's grid feeds only ``flow_from_coords``, so its
+    coordinates are built and nothing is sampled (JAX's sampled image there is dead code);
+    the 4 flow warps go through one sampler call."""
+    n = w.num_scales
+    smooth_loss = _smooth_loss(
+        [f[s] for s in range(n) for f in (pred_flow_x, pred_flow_y)],
+        [c for c in _smooth_coefs(w, n) for _ in range(2)])
+    rights = [_area(image_right, w.scale_hw(s)) for s in range(n)]
+    flows, _ = bilinear_sample_group(
+        rights, [flow_coords(pred_flow_x[s], pred_flow_y[s]) for s in range(n)], w.sampler)
+    pixel_loss = optflow_loss = 0.0
+    for s in range(n):
+        hw = w.scale_hw(s)
+        curr_label = _area(label, hw)
+        pixel_loss += (flows[s] - _area(image_left, hw)).abs().mean() * w.data_weight / 2**s
+        gt_coords = projective_coords(1.0 / curr_label[..., 0], tgt2src_proj,
+                                      intrinsics[:, s], fmt="matrix")[0]
+        gt_fx, gt_fy = flow_from_coords(gt_coords)
+        optflow_loss += (pred_flow_x[s] - gt_fx).abs().mean() * w.optflow_weight / 2**s
+        optflow_loss += (pred_flow_y[s] - gt_fy).abs().mean() * w.optflow_weight / 2**s
+    total = pixel_loss + smooth_loss + optflow_loss
+    return total, {"total": total, "pixel": pixel_loss, "smooth": smooth_loss,
+                   "optflow": optflow_loss}
+
+
+def optflow3_loss(image_left: torch.Tensor, image_right: torch.Tensor,
+                  pred_depths: Sequence[torch.Tensor], label: torch.Tensor,
+                  tgt2src_proj: torch.Tensor, intrinsics: torch.Tensor, w: LossWeights):
+    """3-channel-head depth training (ref ``train_optflow.py:95-135``), per scale: the L1
+    of the whole 3-channel prediction against the broadcast label times ``depth_weight /
+    2^s``, the smoothness of the prediction (its 3 channel views), and where
+    ``data_weight`` > 0 (0 in the preset) the photometric L1 of the right image warped by
+    1/pred[..., 0] with the GT 4x4 times ``data_weight / 2^s``."""
+    n = w.num_scales
+    smooth_loss = _smooth_loss(pred_depths[:n], _smooth_coefs(w, n))
+    warped = (_gt_proj_warps(image_right, pred_depths, tgt2src_proj, intrinsics, w)
+              if w.data_weight > 0 else None)
+    depth_loss = pixel_loss = 0.0
+    for s in range(n):
+        hw = w.scale_hw(s)
+        depth_loss += (_area(label, hw) - pred_depths[s]).abs().mean() \
+            * w.depth_weight / 2**s
+        if warped is not None:
+            pixel_loss += (warped[s] - _area(image_left, hw)).abs().mean() \
+                * w.data_weight / 2**s
+    total = depth_loss + smooth_loss + pixel_loss
+    return total, {"total": total, "depth": depth_loss, "smooth": smooth_loss,
+                   "pixel": pixel_loss}
+
+
+def multi_source_loss(tgt_image: torch.Tensor, src_images: Sequence[torch.Tensor],
+                      pred_disps: Sequence[torch.Tensor], label: torch.Tensor,
+                      tgt2src_projs: torch.Tensor, intrinsics: torch.Tensor,
+                      w: LossWeights):
+    """SfMLearner-style multi-source training (ref ``train.py:95-165``), per scale: the
+    smoothness of the prediction (3 channel views) and the unweighted L1 of the 3-channel
+    prediction against the broadcast label; the photometric L1 of each source warped by
+    1/pred[..., 0] with its GT transform times ``data_weight / 2^s`` is computed for the
+    record only: the reference's total is smooth + depth (``train.py:160``). So the warps
+    of every scale and source run under ``torch.no_grad()`` in one sampler call, forward
+    only. ``src_images``: [B, H, W, 3] each; ``tgt2src_projs`` [B, S, 4, 4]."""
+    n = w.num_scales
+    smooth_loss = _smooth_loss(pred_disps[:n], _smooth_coefs(w, n))
+    depth_loss = 0.0
+    for s in range(n):
+        depth_loss += (_area(label, w.scale_hw(s)) - pred_disps[s]).abs().mean()
+    with torch.no_grad():
+        srcs, coords = [], []
+        for s in range(n):
+            for i, src in enumerate(src_images):
+                srcs.append(_area(src, w.scale_hw(s)))
+                coords.append(projective_coords(1.0 / pred_disps[s][..., 0],
+                                                tgt2src_projs[:, i], intrinsics[:, s],
+                                                fmt="matrix")[0])
+        warped, _ = bilinear_sample_group(srcs, coords, w.sampler)
+        pixel_loss = 0.0
+        for s in range(n):
+            curr_tgt = _area(tgt_image, w.scale_hw(s))
+            for i in range(len(src_images)):
+                pixel_loss += (warped[s * len(src_images) + i] - curr_tgt).abs().mean() \
+                    * w.data_weight / 2**s
+    total = smooth_loss + depth_loss
+    return total, {"total": total, "smooth": smooth_loss, "depth": depth_loss,
+                   "pixel": pixel_loss}

@@ -76,18 +76,21 @@ class TFConv2d(nn.Module):
 
 
 class TFConvTranspose(nn.Module):
-    """``tf.nn.conv2d_transpose`` SAME; ``weight`` is [in, out, kh, kw]."""
+    """``tf.nn.conv2d_transpose`` SAME; ``weight`` is [in, out, kh, kw], and an optional
+    ``bias``."""
 
     def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 2,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, bias: bool = False):
         super().__init__()
         self.stride = stride
         # glorot fans of the TF variable [k, k, out, in], as slim computes them
         self.weight = nn.Parameter(
             _glorot((cin, cout, k, k), cout * k * k, cin * k * k, generator))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
-        return conv_transpose2d_same(x, self.weight.to(x.dtype), None, self.stride)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return conv_transpose2d_same(x, self.weight.to(x.dtype), bias, self.stride)
 
 
 def bn_affine(bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor):
@@ -140,20 +143,24 @@ class SlimBatchNorm(nn.Module):
 
 class SlimConv(nn.Module):
     """conv (or TF transposed conv) -> slim batch norm -> ReLU, or without the ReLU
-    (``relu=False``: TurboDepthNet's laterals and upsamples). JAX's
-    ``SlimConv(use_bn=False)``, a conv with a bias and no batch norm, is ``TFConv2d(...,
-    bias=True)`` here, as the linear heads of every port net are, so that its weights
-    keep the weight bridge's ``<layer>.weight`` / ``<layer>.bias`` names."""
+    (``relu=False``: TurboDepthNet's laterals and upsamples). ``use_bn=False`` is JAX's
+    ``SlimConv(use_bn=False)`` with its ReLU: the conv takes a bias (``conv.bias``) and
+    no batch norm follows (``bn`` is None; depth4_nobn DispNet). A linear head, a conv
+    with a bias and neither, is ``TFConv2d(..., bias=True)`` in every port net, with the
+    weight bridge's ``<layer>.weight`` / ``<layer>.bias`` names."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  transpose: bool = False, generator: Optional[torch.Generator] = None,
-                 bn_momentum: float = 0.99, relu: bool = True):
+                 bn_momentum: float = 0.99, relu: bool = True, use_bn: bool = True):
         super().__init__()
-        self.conv = (TFConvTranspose(cin, cout, k, stride, generator) if transpose
-                     else TFConv2d(cin, cout, k, stride, generator=generator))
-        self.bn = SlimBatchNorm(cout, bn_momentum)
+        self.conv = (TFConvTranspose(cin, cout, k, stride, generator, bias=not use_bn)
+                     if transpose else
+                     TFConv2d(cin, cout, k, stride, bias=not use_bn, generator=generator))
+        self.bn = SlimBatchNorm(cout, bn_momentum) if use_bn else None
         self.relu = relu
 
     def forward(self, x):
-        y = self.bn(self.conv(x))
+        y = self.conv(x)
+        if self.bn is not None:
+            y = self.bn(y)
         return torch.relu(y) if self.relu else y

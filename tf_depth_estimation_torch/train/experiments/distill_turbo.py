@@ -42,7 +42,7 @@ from tf_depth_estimation_torch.train.experiments.common import (
 )
 from tf_depth_estimation_torch.train.loop import run_training
 from tf_depth_estimation_torch.train.state import create_train_state
-from tf_depth_estimation_torch.weights import state_dict_to_variables, variables_to_state_dict
+from tf_depth_estimation_torch.weights import load_variables, state_dict_to_variables
 
 _CACHE_FRAMES = 1024  # ~2.5 MB a frame at 384x576: at most ~2.5 GB of host memory
 SYNTHETIC_FRAMES = 16
@@ -105,7 +105,7 @@ def load_teacher_variables(args) -> dict:
         return state_dict_to_variables(model.state_dict())
     variables, step = load_latest_variables(args.teacher_checkpoint_dir, "model")
     try:
-        DispNet().load_state_dict(variables_to_state_dict(variables), strict=True)
+        load_variables(DispNet(), variables)
     except (KeyError, RuntimeError) as e:
         raise SystemExit(f"model-{step}.npz in {args.teacher_checkpoint_dir} does not hold "
                          f"depth4 DispNet weights: {e}")

@@ -39,7 +39,7 @@ from tf_depth_estimation_torch.train.experiments.common import (
     parse,
 )
 from tf_depth_estimation_torch.utils.npz import load_variables_npz
-from tf_depth_estimation_torch.weights import variables_to_state_dict
+from tf_depth_estimation_torch.weights import load_variables
 
 PAIR_GROUP, SINGLE_GROUP = "model_pairdepth", "model_singledepth"
 
@@ -66,12 +66,10 @@ def _restore(model: torch.nn.Module, directory: str, group: str) -> None:
     if mgr.latest_step() is None:
         return
     path = mgr.weights_path(mgr.latest_step())
-    sd = variables_to_state_dict(load_variables_npz(path)[0])
-    want = model.state_dict()
-    if sorted(sd) != sorted(want) or any(sd[k].shape != want[k].shape for k in sd):
-        raise RuntimeError(f"{path} holds other layers or shapes than "
-                           f"{type(model).__name__}")
-    model.load_state_dict(sd, strict=True)
+    try:
+        load_variables(model, load_variables_npz(path)[0])
+    except RuntimeError as e:
+        raise RuntimeError(f"{path}: {e}") from e
 
 
 def pair_model(args) -> DepthPoseNet:

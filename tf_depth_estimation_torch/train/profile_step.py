@@ -13,14 +13,17 @@ batch 1), ``depth_only_turbo`` (config 2T: turbo-colon on config 2's batch), ``d
 (turbo-base learning a seeded depth4 teacher's pyramid through the teacher's folded
 forward, 576x384, batch 8), ``on_demon`` (config 5: the truncated DepthPoseNet on a DeMoN
 pair, 192x256, batch 16), ``lr_full`` (``depth_then_cam_lr``: LRNet on a DeMoN pair,
-192x256, batch 16) or ``lr_gt`` (``depth_then_cam_lr --gt_pose``), bf16, as the CLIs
-train. ``--sampler plain`` (the warps of configs 3 and 4 and the samplings of the L/R
-family), ``--smoothness plain`` and ``--sig plain`` route those terms to their plain
-versions for the measurement, as a yardstick for the kernels (the port itself always runs
-them). The
-batch is synthetic (``data/synthetic.py``'s scenes, on the device before the window),
-the weights random from seed 0. Prints the top kernels,
-the share of each kind, the steps' wall time and the device's busy share (kernel time over
+192x256, batch 16), ``lr_gt`` (``depth_then_cam_lr --gt_pose``), the colon-pair family's
+``optflow_family_{only_image,optflow_only,optflow3,pre,sfm}`` (``optflow_family --mode
+...``: DispNet depth4 or sfm, 224x480, batch 10) or ``dim11`` (the full-resolution
+DepthPoseNet on a colon pair in [-0.5, 0.5], 224x224, batch 10), bf16, as the CLIs train,
+the DeMoN-stream and colon-pair configs built by their CLIs' own functions.
+``--sampler plain`` (the warps of configs 3 and 4 and of the colon-pair family, and the
+samplings of the L/R family), ``--smoothness plain`` and ``--sig plain`` route those terms
+to their plain versions for the measurement, as a yardstick for the kernels (the port
+itself always runs them). The batch is synthetic (``data/synthetic.py``'s scenes, on the
+device before the window), the weights random from seed 0. Prints the top kernels, the
+share of each kind, the steps' wall time and the device's busy share (kernel time over
 wall time; overlapping kernels count twice, so it is an upper bound).
 """
 from __future__ import annotations
@@ -45,7 +48,12 @@ from tf_depth_estimation_torch.models.turbo import TurboDepthNet, TurboVariant
 from tf_depth_estimation_torch.ops.sig_l2 import sig_l2_plain_group
 from tf_depth_estimation_torch.ops.smoothness import smoothness_plain_group
 from tf_depth_estimation_torch.train.distill import folded_teacher, make_distill_step
-from tf_depth_estimation_torch.train.experiments import depth_then_cam_lr, on_demon
+from tf_depth_estimation_torch.train.experiments import (
+    depth_then_cam_lr,
+    dim11,
+    on_demon,
+    optflow_family,
+)
 from tf_depth_estimation_torch.train.experiments.split_training import single_batches
 from tf_depth_estimation_torch.train.state import create_train_state
 from tf_depth_estimation_torch.weights import state_dict_to_variables
@@ -152,22 +160,49 @@ def _depth_then_cam_setup(batch, height, width, device, sampler):
     return w, create_train_state(model), make_depth_then_cam_step(w), data
 
 
-def _cli_setup(cli, *flags: str):
-    """A DeMoN CLI's own loss weights, state and step (``cli.loss_weights``,
-    ``make_state``, ``make_step`` under ``flags``), bf16 from seed 0, at its defaults where
-    the batch, height or width is None."""
+def dim11_batch(batch: int, height: int, width: int, seed: int, device) -> dict:
+    """A dim11 batch: ``pair_batch``'s scenes with the pixels scaled to [-0.5, 0.5], as
+    ``data/colon.py:Dim11Dataset`` scales them."""
+    data = pair_batch(batch, height, width, seed, device)
+    for k in ("tgt_image", "src_image"):
+        data[k] = data[k] / 255.0 - 0.5
+    return data
+
+
+def _demon_data(batch, height, width, device):
+    return demon_batch(batch, height, width, np.random.RandomState(0), device)
+
+
+def _pair_data(maker):
+    return lambda batch, height, width, device: maker(batch, height, width, 0, device)
+
+
+def _cli_setup(cli, *flags: str, data=_demon_data,
+               size=("--image_height", "--image_width")):
+    """A CLI's own loss weights, state and step (``cli.loss_weights``, ``make_state``,
+    ``make_step`` under ``flags``), bf16 from seed 0, at its defaults where the batch,
+    height or width is None; ``size`` names the CLI's flags of the training size and
+    ``data(batch, height, width, device)`` makes the batch (a DeMoN batch by default)."""
     def setup(batch, height, width, device, sampler):
-        sized = [a for flag, v in (("--batch_size", batch), ("--image_height", height),
-                                   ("--image_width", width)) if v for a in (flag, str(v))]
+        sized = [a for flag, v in (("--batch_size", batch), (size[0], height),
+                                   (size[1], width)) if v for a in (flag, str(v))]
         args = cli.parse_args(["--device", str(device), "--dtype", "bfloat16", "--seed", "0",
                                *sized, *flags])
         w = cli.loss_weights(args)
         if sampler == "plain":
             w = dataclasses.replace(w, sampler="xla")
-        data = demon_batch(args.batch_size, w.height, w.width, np.random.RandomState(0),
-                           device)
-        return w, cli.make_state(args), cli.make_step(args, w), data
+        return (w, cli.make_state(args), cli.make_step(args, w),
+                data(args.batch_size, w.height, w.width, device))
     return setup
+
+
+def _colon_setup(cli, *flags: str):
+    """``_cli_setup`` of a colon-pair CLI: optflow_family at its resized size on
+    ``pair_batch``, dim11 on ``dim11_batch``."""
+    if cli is dim11:
+        return _cli_setup(cli, *flags, data=_pair_data(dim11_batch))
+    return _cli_setup(cli, *flags, data=_pair_data(pair_batch),
+                      size=("--resized_height", "--resized_width"))
 
 
 def _split_setup(phase: str):
@@ -203,6 +238,11 @@ def _distill_setup(batch, height, width, device, sampler):
 # the DeMoN-stream configs -> (their CLI, its flags)
 DEMON_CLIS = {"on_demon": (on_demon, ()), "lr_full": (depth_then_cam_lr, ()),
               "lr_gt": (depth_then_cam_lr, ("--gt_pose",))}
+# the colon-pair configs -> (their CLI, its flags); optflow_family trains at its resized
+# size, dim11 on [-0.5, 0.5] pixels
+COLON_CLIS = {**{f"optflow_family_{mode}": (optflow_family, ("--mode", mode))
+                 for mode in sorted(optflow_family.MODES)},
+              "dim11": (dim11, ())}
 # config -> setup(batch, height, width, device, sampler) -> (LossWeights, TrainState, step,
 # batch); a batch, height or width of None takes the configuration's own
 CONFIGS = {
@@ -217,9 +257,11 @@ CONFIGS = {
                                        make_depth_only_step, net=TurboDepthNet),
     "distill": _distill_setup,
     **{config: _cli_setup(cli, *flags) for config, (cli, flags) in DEMON_CLIS.items()},
+    **{config: _colon_setup(cli, *flags) for config, (cli, flags) in COLON_CLIS.items()},
 }
 # the configurations whose warps a sampler runs
-SAMPLED = ("optflow_combine", "depth_then_cam", "lr_full", "lr_gt")
+SAMPLED = ("optflow_combine", "depth_then_cam", "lr_full", "lr_gt", "dim11",
+           *(f"optflow_family_{m}" for m in ("only_image", "optflow_only", "sfm")))
 
 
 def profile(steps: int = 3, sampler: str = "kernel", device="cuda", batch: int = None,

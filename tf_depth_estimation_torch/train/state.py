@@ -18,7 +18,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch import nn
 
-from tf_depth_estimation_torch.weights import state_dict_to_variables, variables_to_state_dict
+from tf_depth_estimation_torch.weights import load_variables, state_dict_to_variables
 
 
 def adam(params, learning_rate: float, beta1: float = 0.9) -> torch.optim.Adam:
@@ -45,8 +45,7 @@ class TrainState:
 
     def load_variables(self, variables: Dict[str, Any]) -> None:
         """Load a JAX variables tree (e.g. a JAX ``create_train_state`` init)."""
-        sd = variables_to_state_dict(variables)
-        self.model.load_state_dict(sd, strict=True)
+        load_variables(self.model, variables)
 
 
 def create_train_state(model: nn.Module, learning_rate: float = 2e-4, beta1: float = 0.9,

@@ -18,10 +18,15 @@ from tf_depth_estimation_torch.losses.pipelines import (
     depth_only_loss,
     depth_only_val_loss,
     depth_then_cam_loss,
+    dim11_joint_loss,
     lr_full_loss,
     lr_gt_pose_loss,
+    multi_source_loss,
     on_demon_loss,
+    only_image_loss,
+    optflow3_loss,
     optflow_combine_loss,
+    optflow_only_loss,
     pairwise_depth_loss,
     single_depth_loss,
 )
@@ -197,6 +202,89 @@ def make_lr_gt_step(w: LossWeights):
             left, right, out["pair_left"], out["pair_right"], out["pose_right"],
             out["pose_left"], out["exp_left"], out["exp_right"], gt_cam,
             batch["intrinsics"], batch["depth0"], w)
+        return _apply(state, total, comps)
+
+    return step
+
+
+def _pair(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The stacked pair [target | source], [B, H, W, 6]."""
+    return torch.cat([batch["tgt_image"], batch["src_image"]], -1)
+
+
+def make_dim11_step(w: LossWeights):
+    """``train_depth_only_dim11.py``: the full-resolution DepthPoseNet on the stacked
+    colon pair; ``dim11_joint_loss`` with the predicted Euler pose. Batch keys:
+    ``tgt_image``, ``src_image`` [B, H, W, 3] (in [-0.5, 0.5]), ``label`` [B, H, W, 1],
+    ``intrinsics`` [B, S, 3, 3]."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.train()
+        disps, poses, exps = state.model.forward_nhwc(_pair(batch))
+        total, comps = dim11_joint_loss(batch["tgt_image"], batch["src_image"], disps,
+                                        poses, exps, batch["intrinsics"], batch["label"], w)
+        return _apply(state, total, comps)
+
+    return step
+
+
+def make_only_image_step(w: LossWeights):
+    """``train_onlyimage.py``: DispNet on the stacked pair; ``only_image_loss`` with the
+    GT transform. Batch keys: those of ``make_optflow_combine_step``."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.train()
+        preds = state.model.forward_nhwc(_pair(batch))
+        total, comps = only_image_loss(batch["tgt_image"], batch["src_image"], preds,
+                                       batch["tgt2src_projs"][:, 0], batch["intrinsics"], w)
+        return _apply(state, total, comps)
+
+    return step
+
+
+def make_optflow_only_step(w: LossWeights):
+    """``train_optflow_only.py``: sfm DispNet on the target image; channels 0 and 1 of its
+    3-channel heads are flow x and y (channel views, not copies); ``optflow_only_loss``.
+    Batch keys: those of ``make_optflow_combine_step``."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.train()
+        preds = state.model.forward_nhwc(batch["tgt_image"])
+        total, comps = optflow_only_loss(
+            batch["tgt_image"], batch["src_image"], [p[..., 0:1] for p in preds],
+            [p[..., 1:2] for p in preds], batch["label"], batch["tgt2src_projs"][:, 0],
+            batch["intrinsics"], w)
+        return _apply(state, total, comps)
+
+    return step
+
+
+def make_sfm_multi_step(w: LossWeights):
+    """``train.py``: sfm DispNet on the target image; ``multi_source_loss`` with the one
+    source view and its GT transforms. Batch keys: those of
+    ``make_optflow_combine_step``."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.train()
+        preds = state.model.forward_nhwc(batch["tgt_image"])
+        total, comps = multi_source_loss(batch["tgt_image"], [batch["src_image"]], preds,
+                                         batch["label"], batch["tgt2src_projs"],
+                                         batch["intrinsics"], w)
+        return _apply(state, total, comps)
+
+    return step
+
+
+def make_optflow3_step(w: LossWeights):
+    """``train_optflow.py``: sfm DispNet on the stacked pair; ``optflow3_loss`` (the
+    broadcast L1). Batch keys: those of ``make_optflow_combine_step``."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.train()
+        preds = state.model.forward_nhwc(_pair(batch))
+        total, comps = optflow3_loss(batch["tgt_image"], batch["src_image"], preds,
+                                     batch["label"], batch["tgt2src_projs"][:, 0],
+                                     batch["intrinsics"], w)
         return _apply(state, total, comps)
 
     return step

@@ -3,9 +3,13 @@
 ``single/...`` and ``pair/...`` trees.
 
 A layer of the JAX tree (numpy arrays from a ``.npz`` or from a flax ``init``) is a node
-holding ``Conv_0`` or ``TFConvTranspose_0`` (``kernel``, and ``bias`` for a linear head)
-and, when a batch norm follows, ``BatchNorm_0/bias`` in ``params`` and
-``BatchNorm_0/{mean,var}`` at the same path in ``batch_stats``. The state dict names each
+holding ``Conv_0`` or ``TFConvTranspose_0`` (``kernel``, and ``bias`` where no batch norm
+follows) and, when a batch norm follows, ``BatchNorm_0/bias`` in ``params`` and
+``BatchNorm_0/{mean,var}`` at the same path in ``batch_stats``. A layer without a batch
+norm is a linear head (``<layer>.weight``, ``<layer>.bias``) or, in depth4_nobn DispNet,
+a conv + bias + ReLU (``SlimConv(use_bn=False)``: ``<layer>.conv.weight``,
+``<layer>.conv.bias``); the tree does not tell them apart, so ``load_variables`` asks the
+model's own keys. The state dict names each
 layer by the same path joined with dots: ``DispNet``'s layers sit under the parts
 ``encoder``, ``decoder`` and, for depth10_flow, ``flow_decoder`` (``decoder.upcnv7``,
 ``flow_decoder.disp1_opt``), ``DepthPoseNet``'s and ``TurboDepthNet``'s at the top
@@ -16,7 +20,7 @@ layer by the same path joined with dots: ``DispNet``'s layers sit under the part
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -40,20 +44,27 @@ def _layers(tree: Dict[str, Any], path=()):
             yield from _layers(node, path + (name,))
 
 
-def variables_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX variables tree -> state dict (float32 CPU tensors)."""
+def variables_to_state_dict(variables: Dict[str, Any],
+                            keys: Optional[Iterable[str]] = None) -> Dict[str, torch.Tensor]:
+    """JAX variables tree -> state dict (float32 CPU tensors). A layer without a batch
+    norm becomes ``<layer>.conv.weight`` / ``.conv.bias`` where ``keys`` (the keys of the
+    state dict it is loaded into) hold ``<layer>.conv.weight``, else a linear head's
+    ``<layer>.weight`` / ``.bias``. Models load through ``load_variables``, which passes
+    their keys; without ``keys`` a depth4_nobn tree maps as linear heads."""
     t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+    keys = set(keys or ())
     sd: Dict[str, torch.Tensor] = {}
     for path, layer in _layers(variables["params"]):
         key = ".".join(path)
-        if "BatchNorm_0" not in layer:     # a linear head: conv + bias
-            sd[f"{key}.weight"] = t(layer["Conv_0"]["kernel"]).permute(_TO_TORCH)
-            sd[f"{key}.bias"] = t(layer["Conv_0"]["bias"])
+        conv = layer.get("Conv_0") or layer["TFConvTranspose_0"]
+        if "BatchNorm_0" not in layer:     # a linear head, or a conv + bias + ReLU
+            pre = f"{key}.conv" if f"{key}.conv.weight" in keys else key
+            sd[f"{pre}.weight"] = t(conv["kernel"]).permute(_TO_TORCH)
+            sd[f"{pre}.bias"] = t(conv["bias"])
             continue
         stats = variables["batch_stats"]
         for name in path:
             stats = stats[name]
-        conv = layer.get("Conv_0") or layer["TFConvTranspose_0"]
         sd[f"{key}.conv.weight"] = t(conv["kernel"]).permute(_TO_TORCH)
         sd[f"{key}.bn.bias"] = t(layer["BatchNorm_0"]["bias"])
         sd[f"{key}.bn.running_mean"] = t(stats["BatchNorm_0"]["mean"])
@@ -74,9 +85,13 @@ def state_dict_to_variables(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 
     for key, v in sd.items():
         parts = key.split(".")
-        if parts[-2:] == ["conv", "weight"]:
+        if parts[-2] == "conv":
             kind = "TFConvTranspose_0" if "upcnv" in parts[-3] else "Conv_0"
-            node(params, parts[:-2])[kind] = {"kernel": n(v).transpose(_TO_JAX)}
+            conv = node(params, parts[:-2]).setdefault(kind, {})
+            if parts[-1] == "weight":
+                conv["kernel"] = n(v).transpose(_TO_JAX)
+            else:
+                conv["bias"] = n(v)
         elif parts[-2:] == ["bn", "bias"]:
             node(params, parts[:-2])["BatchNorm_0"] = {"bias": n(v)}
         elif parts[-2] == "bn":
@@ -90,15 +105,40 @@ def state_dict_to_variables(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return {"params": params, "batch_stats": stats}
 
 
+def load_variables(model: torch.nn.Module, variables: Dict[str, Any]) -> None:
+    """Load a JAX variables tree into ``model``, each layer without a batch norm mapped as
+    ``model``'s keys name it. A tree of other layers or shapes raises ``RuntimeError``
+    before anything is loaded."""
+    want = model.state_dict()
+    sd = variables_to_state_dict(variables, want)
+    if sorted(sd) != sorted(want) or any(sd[k].shape != want[k].shape for k in sd):
+        raise RuntimeError(f"the tree holds other layers or shapes than "
+                           f"{type(model).__name__}")
+    model.load_state_dict(sd, strict=True)
+
+
+def dispnet_variant(variables: Dict[str, Any]) -> DispNetVariant:
+    """The ``DispNetVariant`` of a DispNet tree: depth10_flow where it has a
+    ``flow_decoder``, sfm where its heads have 3 channels, depth4_nobn where ``cnv1`` has
+    no batch norm, else depth4."""
+    params = variables["params"]
+    if "flow_decoder" in params:
+        return DispNetVariant.depth10_flow()
+    if np.shape(params["decoder"]["disp1"]["Conv_0"]["kernel"])[3] == 3:
+        return DispNetVariant.sfm()
+    if "BatchNorm_0" not in params["encoder"]["cnv1"]:
+        return DispNetVariant.depth4_nobn()
+    return DispNetVariant.depth4()
+
+
 def dispnet_from_variables(variables: Dict[str, Any], *, device="cuda") -> DispNet:
     """An eval-mode float32 ``DispNet`` on ``device`` holding ``variables`` (strict
-    load): depth10_flow where the tree has a ``flow_decoder``, else depth4; the input
-    channels are those of ``cnv1``'s kernel."""
+    load), of the tree's variant (``dispnet_variant``); the input channels are those of
+    ``cnv1``'s kernel."""
     params = variables["params"]
-    flow = "flow_decoder" in params
-    model = DispNet(DispNetVariant.depth10_flow() if flow else DispNetVariant.depth4(),
+    model = DispNet(dispnet_variant(variables),
                     in_channels=np.shape(params["encoder"]["cnv1"]["Conv_0"]["kernel"])[2])
-    model.load_state_dict(variables_to_state_dict(variables), strict=True)
+    load_variables(model, variables)
     return model.eval().to(device)
 
 
@@ -109,7 +149,7 @@ def depth_pose_from_variables(variables: Dict[str, Any], *, device="cuda") -> De
     params = variables["params"]
     model = DepthPoseNet(full_resolution="disp1" in params,
                          num_source=np.shape(params["pose_pred"]["Conv_0"]["kernel"])[3] // 6)
-    model.load_state_dict(variables_to_state_dict(variables), strict=True)
+    load_variables(model, variables)
     return model.eval().to(device)
 
 
@@ -118,7 +158,7 @@ def lrnet_from_variables(variables: Dict[str, Any], *, device="cuda") -> LRNet:
     with the single-view net where the tree has ``single``; the same path mapping as
     ``dispnet_from_variables`` and ``depth_pose_from_variables`` under each submodule."""
     model = LRNet(with_single="single" in variables["params"])
-    model.load_state_dict(variables_to_state_dict(variables), strict=True)
+    load_variables(model, variables)
     return model.eval().to(device)
 
 
@@ -127,5 +167,5 @@ def turbo_from_variables(variables: Dict[str, Any], variant: TurboVariant, *,
     """An eval-mode float32 ``TurboDepthNet(variant)`` on ``device`` holding ``variables``
     (strict load: a tree of another variant raises ``RuntimeError``)."""
     model = TurboDepthNet(variant)
-    model.load_state_dict(variables_to_state_dict(variables), strict=True)
+    load_variables(model, variables)
     return model.eval().to(device)
