@@ -12,7 +12,9 @@ device-resident corpus, train the DeMoN-stream families at 192x256: config 5 (th
 truncated DepthPoseNet, ``on_demon``) and the symmetric L/R family (``LRNet``,
 ``depth_then_cam_lr`` with and without ``--gt_pose``), and train the colon-pair families:
 ``optflow_family``'s five modes on DispNet depth4 and sfm at 224x480, and ``dim11`` on the
-full-resolution DepthPoseNet at 224x224.
+full-resolution DepthPoseNet at 224x224, refine depth4 DispNet's weights on one pair
+against a COLMAP model at 224x224 (``infer/refine_cli.py``), and serve the flow-augmented
+DepthPoseNet at 192x256.
 
     python3 chip_smoke.py
 
@@ -236,7 +238,24 @@ Phases, each raising on failure:
      ``"xla"``, in 8 rounds of 5 steps each way, the first way alternating, with each
      round's paired difference and their median; each one's launches, busy share and the
      smoothness and (on a "pallas" preset) the sampler kernels' device time a step from
-     ``profile_step``.
+     ``profile_step``;
+ 40. refinement, a main path: ``infer/refine_cli.py`` for 20 f32 steps on a two-view
+     COLMAP text model of one synthetic scene at 224x224 (known depth and pose, 64
+     anchors projected from the depth; depth4 DispNet, B=1), the counts set to 0 just
+     before and read after each step: 1 + 1 smoothness launches a step (a group of the 4
+     disparities), and on the "pallas" preset 1 + 1 sampler launches (the 4 warps) with
+     no plain sampling, on "xla" 4 plain samplings; the ``.bin`` finite, positive and of
+     H x W, the scale finite and > 0;
+ 41. step parity: one f32 refine step with the kernels against one with the plain
+     sampler and smoothness term from one init (phase 9's limits);
+ 42. times: ms/step of the f32 refine step with ``sampler="pallas"`` and ``"xla"`` in 8
+     rounds of 5 steps each way, the first way alternating, with the paired differences
+     and their median (the preset's rule); each route's launches, busy share and the
+     kernels' device time a step from ``profile_step``'s ``refine`` config;
+ 43. flow-augmented serving, a main path: ``FlowAugmentedPredictor`` (the truncated
+     DepthPoseNet over 11 channels, a seeded init warmed on the inputs) answers requests
+     of 16, 5 and 1 inputs at 192x256 in bf16 through the folded forward, within phase
+     5's limits of the f32 module forward; frames/s by CUDA events; no launch.
 The GPU machine has no ``h5py``, so the smoke cannot write the DeMoN HDF5 files that the
 split_training, depth_then_cam, on_demon and depth_then_cam_lr CLIs read
 (``data/demon.py``): phases 15, 19, 33 and 34 feed the CLIs' train functions batches of
@@ -268,9 +287,15 @@ import torch
 from tf_depth_estimation_torch.data.colon import PairDepthDataset
 from tf_depth_estimation_torch.data.device_cache import DeviceCache
 from tf_depth_estimation_torch.data.pipeline import BatchLoader, to_device
-from tf_depth_estimation_torch.data.synthetic import write_colon_pair_dataset
+from tf_depth_estimation_torch.data.synthetic import (
+    colmap_pair_scene,
+    make_pair_scene,
+    write_colmap_pair,
+    write_colon_pair_dataset,
+)
 from tf_depth_estimation_torch.geometry.warp import projective_inverse_warp
 from tf_depth_estimation_torch.infer import cli as infer_cli
+from tf_depth_estimation_torch.infer import refine, refine_cli
 from tf_depth_estimation_torch.infer.fast import (
     fast_depth_forward,
     fold_weights,
@@ -284,6 +309,7 @@ from tf_depth_estimation_torch.infer.fast_turbo import (
 )
 from tf_depth_estimation_torch.infer.predictor import (
     DepthPredictor,
+    FlowAugmentedPredictor,
     PairPredictor,
     TurboPredictor,
 )
@@ -359,7 +385,7 @@ from tf_depth_estimation_torch.weights import (
     depth_pose_from_variables,
     dispnet_from_variables,
     lrnet_from_variables,
-    state_dict_to_variables,
+    module_variables,
     turbo_from_variables,
 )
 
@@ -526,6 +552,24 @@ COLON_SMOOTH_MAPS = {"only_image": 4, "optflow_only": 8, "optflow3": 12, "pre": 
 # disagree between runs (optflow_only is JAX's own "pallas" and is not timed)
 COLON_TIMED = ("optflow_family_only_image", "dim11", "optflow_family_sfm")
 COLON_ROUNDS, COLON_ROUND_STEPS = 8, 5
+# test-time refinement (infer/refine_cli.py's defaults): a two-view COLMAP text model of one
+# synthetic scene at 224x224 with 64 anchors, depth4 DispNet in float32, B=1; 20 steps.
+# A step's 4 smoothness maps are one group call each way; its 4 warps are one sampler
+# call each way (coordinate gradients on all four) on the "pallas" route, and 4 plain
+# samplings on "xla"; the preset is infer/refine.py:SAMPLER
+RF_HW, RF_POINTS, RF_STEPS, RF_WARPS = (224, 224), 64, 20, 4
+RF_ROUNDS, RF_ROUND_STEPS = 8, 5
+RF_LR = 1e-4
+# flow-augmented serving (FlowAugmentedPredictor's defaults): the truncated DepthPoseNet
+# over 11 channels at 192x256, batch 16, bf16 folded forward
+FLOW_HW, FLOW_BATCH = (192, 256), 16
+# its bf16 answers against the f32 module forward: a sanity bound, not phase 5's limit.
+# There are no trained weights of this net: a seeded init, its statistics warmed on raw
+# 0..255 inputs, lets bf16 rounding grow layer by layer through the encoder, and JAX's own
+# bf16 FlowAugmentedPredictor on the same net and inputs lies beyond 2.5e-2 max and 5e-3
+# mean of its f32 module (tests/test_torch_models_extra.py asserts that and holds both
+# packages here). The check of the path is the f32 folded forward at TOL_FORWARD.
+TOL_FLOW_SERVING = (0.5, 0.1)
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32, PEAK_BF16, PEAK_HBM = 67e12, 989e12, 3.35e12
 PEAK_INT8 = 1979e12
@@ -1873,9 +1917,9 @@ def phase_depth_then_cam(device, root: str, *, height: int = C3_HEIGHT,
 def _compare_steps(label: str, runs: dict, lr: float, smi: str, total: str = "total",
                    loss_rtol: float = TOL_STEP["loss_rtol"]) -> dict:
     """Hold ``runs["kernel"]`` to ``runs["plain"]`` (one f32 step each: (metrics,
-    parameters)) and ``runs["kernel_bf16"]``'s ``total`` to the f32 one, at ``loss_rtol``,
-    TOL_STEP and TOL_BF16_LOSS."""
-    (lk, pk), (lp, pp), (lb, _) = runs["kernel"], runs["plain"], runs["kernel_bf16"]
+    parameters)) and, where given, ``runs["kernel_bf16"]``'s ``total`` to the f32 one, at
+    ``loss_rtol``, TOL_STEP and TOL_BF16_LOSS."""
+    (lk, pk), (lp, pp) = runs["kernel"], runs["plain"]
     loss_err = max(_rel(lk[k], lp[k]) for k in lp)
     off = n = 0
     worst = 0.0
@@ -1884,15 +1928,16 @@ def _compare_steps(label: str, runs: dict, lr: float, smi: str, total: str = "to
         worst = max(worst, diff.max().item())
         off += int((diff > TOL_STEP["param_atol"]).sum())
         n += diff.numel()
-    bf16_err = _rel(lb[total], lp[total])
+    bf16 = runs.get("kernel_bf16")
+    bf16_err = _rel(bf16[0][total], lp[total]) if bf16 else 0.0
     print(f"step parity f32 {label}, kernels vs plain: " + ", ".join(
         f"{k} {lk[k]:.6f}/{lp[k]:.6f}" for k in lp)
         + f"; loss components rel err max {loss_err:.2e} (tolerance "
         f"{loss_rtol:.0e}); params after Adam: max abs diff {worst:.2e} "
         f"(tolerance 2 lr = {2 * lr:.0e}), {off} of {n} ({off / n:.4%}) beyond "
-        f"{TOL_STEP['param_atol']:.0e} (tolerance {TOL_STEP['param_share_off']:.0%}); bf16 "
-        f"{total} {lb[total]:.4f} vs f32 {lp[total]:.4f}, rel {bf16_err:.2e} "
-        f"(tolerance {TOL_BF16_LOSS}) [{smi}]")
+        f"{TOL_STEP['param_atol']:.0e} (tolerance {TOL_STEP['param_share_off']:.0%})"
+        + (f"; bf16 {total} {bf16[0][total]:.4f} vs f32 {lp[total]:.4f}, rel "
+           f"{bf16_err:.2e} (tolerance {TOL_BF16_LOSS})" if bf16 else "") + f" [{smi}]")
     if loss_err > loss_rtol or worst > 2 * lr * (1 + 1e-4) \
             or off / n >= TOL_STEP["param_share_off"] or bf16_err > TOL_BF16_LOSS:
         raise AssertionError(f"{label} step parity beyond its tolerances")
@@ -2298,19 +2343,24 @@ def turbo_weights(name: str) -> str:
     return os.path.join(ROOT, "weights", f"turbo_{name}_distilled_{W}x{H}.npz")
 
 
+def warmed_variables(model: torch.nn.Module, inputs: torch.Tensor) -> dict:
+    """``model``'s JAX variables tree with its running statistics the batch statistics of
+    ``inputs`` (one train-mode pass at decay 0): a fold then meets statistics that are not
+    the init's zeros and ones."""
+    model = model.to(inputs.device)
+    for m in model.modules():
+        if isinstance(m, SlimBatchNorm):
+            m.momentum = 0.0
+    with torch.no_grad():
+        model.train()(inputs.float())
+    return module_variables(model)
+
+
 def seeded_turbo_variables(variant: TurboVariant, frames: torch.Tensor,
                            seed: int = SEED) -> dict:
-    """A seeded init of ``variant`` whose running statistics are the batch statistics of
-    ``frames`` (one train-mode pass at decay 0), as a JAX variables tree: the fold then
-    meets statistics that are not the init's zeros and ones."""
-    model = TurboDepthNet(variant, generator=torch.Generator().manual_seed(seed))
-    model = model.to(frames.device)
-    bns = [m for m in model.modules() if isinstance(m, SlimBatchNorm)]
-    for m in bns:
-        m.momentum = 0.0
-    with torch.no_grad():
-        model.train()(frames.float())
-    return state_dict_to_variables(model.state_dict())
+    """A seeded init of ``variant`` warmed on ``frames`` (``warmed_variables``)."""
+    return warmed_variables(
+        TurboDepthNet(variant, generator=torch.Generator().manual_seed(seed)), frames)
 
 
 def phase_turbo_parity(device, hw=turbo_hw, batch: int = 2) -> dict:
@@ -3197,6 +3247,226 @@ def phase_colon_times(device, smi: str) -> dict:
     return out
 
 
+# ---- test-time refinement and the flow-augmented predictor ------------------------------
+
+def refine_per_step(sampler: str) -> dict:
+    """A refine step's launches on ``sampler``'s route: the smoothness group each way, and
+    the sampler group each way ("pallas") or RF_WARPS plain samplings ("xla")."""
+    if sampler == "pallas":
+        return {**_SMOOTH, **_SAMPLE}
+    return {**_SMOOTH, "plain_samples": RF_WARPS}
+
+
+@contextlib.contextmanager
+def refine_step_counts(log: list):
+    """Within the block every step that ``infer/refine.py:make_refine_step`` makes appends
+    the launch counts after it (synchronised) to ``log``."""
+    saved = refine.make_refine_step
+
+    def make(**weights):
+        step = saved(**weights)
+
+        def counted(state, inputs):
+            out = step(state, inputs)
+            log.append(read_counts())
+            return out
+        return counted
+
+    refine.make_refine_step = make
+    try:
+        yield
+    finally:
+        refine.make_refine_step = saved
+
+
+def phase_refine(device, root: str, *, hw=RF_HW, points: int = RF_POINTS,
+                 steps: int = RF_STEPS, smi: str = "") -> dict:
+    """Phase 40, a main path: ``infer/refine_cli.py`` for ``steps`` steps on a two-view
+    COLMAP text model of one synthetic scene (``write_colmap_pair``: known depth and pose,
+    ``points`` anchors projected from the depth) at ``hw``, the launch counts set to 0
+    just before the CLI's ``main`` and read after each step; each step's smoothness
+    groups' make-up; the ``.bin`` finite, positive and of H x W, the history finite with
+    the scale > 0; its abs-rel error to the scene's depth printed. Returns the per-step
+    counts, the groups, the history and the seconds."""
+    h, w = hw
+    scene = write_colmap_pair(root, h, w, num_points=points, seed=SEED)
+    out_dir = os.path.join(root, "refined")
+    log, groups = [], []
+    reset_counts()   # a main path: refinement through its CLI
+    t0 = time.perf_counter()
+    with refine_step_counts(log), smooth_groups(groups):
+        depth, hist = refine_cli.main([
+            "--model_dir", scene["model_dir"], "--image_dir", scene["image_dir"],
+            "--image1", "a.jpg", "--image2", "b.jpg", "--output_dir", out_dir,
+            "--steps", str(steps), "--height", str(h), "--width", str(w),
+            "--device", str(device)])
+    seconds = time.perf_counter() - t0
+    per_step = _per_step([{k: 0 for k in log[0]}] + log[:-1], log[-1])
+    z = np.fromfile(os.path.join(out_dir, "a.jpg_refined_z.bin"), np.float32)
+    recorded = 1 + steps // 100
+    if (len(per_step) != steps or z.size != h * w or not np.isfinite(z).all()
+            or not (z > 0).all() or len(hist["loss"]) != recorded
+            or not np.isfinite(hist["loss"] + hist["scale"]).all()
+            or min(hist["scale"]) <= 0):
+        raise AssertionError(f"refinement: {len(per_step)} steps, .bin of {z.size} values "
+                             f"(finite {np.isfinite(z).all()}), history {hist}")
+    absrel = float(np.mean(np.abs(z.reshape(h, w) - scene["depth"]) / scene["depth"]))
+    print(f"refinement: infer/refine_cli.py, {steps} f32 steps at {h}x{w}, B=1, "
+          f"{points} anchors, sampler={refine.SAMPLER} (the preset) in {seconds:.1f} s "
+          f"host clock; loss {hist['loss']}, scale {hist['scale']}; .bin of {z.size} "
+          f"finite positive values, abs-rel {absrel:.4f} to the scene's depth; launches a "
+          f"step {per_step[0]}, smoothness group {groups[0][0]} maps, {groups[0][1]} of them "
+          f"eligible C=1 maps [{smi}]")
+    return {"per_step": per_step, "groups": groups, "history": hist, "seconds": seconds,
+            "absrel": absrel}
+
+
+def refine_setup(device, hw=RF_HW, points: int = RF_POINTS) -> dict:
+    """``refine_inputs`` of the phase-40 scene's pair, from ``colmap_pair_scene``."""
+    scene = colmap_pair_scene(np.random.RandomState(SEED), *hw, points)
+    return refine.refine_inputs(*scene["images"], scene["relative_pose"], scene["K"],
+                                scene["sparse_xy"], scene["sparse_z"], device=device)
+
+
+def phase_refine_parity(device, smi: str, hw=RF_HW) -> dict:
+    """Phase 41: one f32 refine step with the kernels (the smoothness group and the
+    sampler group on "pallas") against one with their plain versions (``"xla"`` and
+    ``plain_smoothness``), from one init (``refine_state``'s seeded one) on the phase-40
+    pair: the loss and the scale within TOL_STEP's rtol, the parameters within 2 lr."""
+    inputs = refine_setup(device, hw)
+    runs = {}
+    for name, sampler in (("kernel", "pallas"), ("plain", "xla")):
+        state = refine.refine_state(seed=SEED, learning_rate=RF_LR, device=device)
+        step = refine.make_refine_step(sampler=sampler)
+        if name == "plain":
+            step = _plain_terms(step)
+        state, metrics = step(state, inputs)
+        runs[name] = ({k: float(v) for k, v in metrics.items()},
+                      {k: p.detach() for k, p in state.model.named_parameters()})
+        del state
+    return _compare_steps(f"refinement ({hw[0]}x{hw[1]}, B=1)", runs, RF_LR, smi)
+
+
+def phase_refine_times(device, smi: str) -> dict:
+    """Phase 42: ms/step of the f32 refine step with ``sampler="pallas"`` and ``"xla"``
+    (the smoothness kernels in both) on one state and the phase-40 pair, in RF_ROUNDS
+    rounds of RF_ROUND_STEPS steps each way, the first way alternating; each round's
+    paired difference (kernel minus plain) and their median, the figure the preset's
+    rule reads; then each route's device time of the smoothness and sampler kernels, its
+    launches and busy share a step from ``profile_step``'s ``refine`` config."""
+    inputs = refine_setup(device)
+    state = refine.refine_state(seed=SEED, learning_rate=RF_LR, device=device)
+    steps = {s: refine.make_refine_step(sampler=s) for s in ("pallas", "xla")}
+    times = {k: [] for k in steps}
+    for r in range(RF_ROUNDS):
+        for name in list(steps)[::1 - 2 * (r % 2)]:
+            times[name].append(time_ms(lambda: steps[name](state, inputs), RF_ROUND_STEPS,
+                                       warmup=1))
+    del state
+    diffs = [p - x for p, x in zip(times["pallas"], times["xla"])]
+    row = {"preset": refine.SAMPLER, "diffs": diffs,
+           "median_diff": statistics.median(diffs)}
+    for name, ts in times.items():
+        row[name] = {"ms": sum(ts) / len(ts), "turns": ts}
+        print(f"time refine step f32 ({RF_HW[0]}x{RF_HW[1]}, B=1) sampler={name}"
+              f"{' (the preset)' if name == refine.SAMPLER else ''}: {row[name]['ms']:.3f} "
+              f"ms/step (rounds {', '.join(f'{t:.3f}' for t in ts)}; spread "
+              f"{max(ts) - min(ts):.3f} ms) [{smi}]")
+    print(f"time refine: paired differences pallas - xla "
+          f"{', '.join(f'{d:+.3f}' for d in diffs)} ms; median {row['median_diff']:+.3f}, "
+          f"mean {sum(diffs) / len(diffs):+.3f} ms/step; the rule (median <= 0) picks "
+          f"{'pallas' if row['median_diff'] <= 0 else 'xla'} [{smi}]")
+    for way, sampler in (("kernel", "pallas"), ("plain", "xla")):
+        prof = profile_step.profile(steps=3, device=device, config="refine", top=0,
+                                    sampler=way)
+        row[sampler].update(
+            launches=prof["launches"], kernel_ms=prof["kernel_ms"],
+            busy=prof["kernel_ms"] / prof["wall_ms"],
+            smooth_ms=kind_ms(prof, "smoothness kernels"),
+            sampler_ms=kind_ms(prof, "sampler kernels") if sampler == "pallas" else None)
+        print(f"profile refine (sampler={sampler}): {prof['kernel_ms']:.3f} ms of kernels "
+              f"in {prof['launches']} launches a step (busy {row[sampler]['busy']:.1%}), "
+              f"smoothness kernels {fmt_ms(row[sampler]['smooth_ms'])}, sampler kernels "
+              f"{fmt_ms(row[sampler]['sampler_ms'])} [{smi}]")
+    return row
+
+
+def flow_inputs(n: int, hw, seed: int = SEED + 30) -> np.ndarray:
+    """[n, H, W, 11] flow-augmented inputs of synthetic scenes (target and source of
+    ``make_pair_scene``) and seeded smooth flows, assembled as the predictor's
+    ``assemble_input`` does."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    out = []
+    for _ in range(n):
+        tgt, src, *_ = make_pair_scene(rng, h, w)
+        coarse = rng.uniform(-3, 3, (h // 16 + 1, w // 16 + 1, 2))
+        flow = np.kron(coarse, np.ones((16, 16, 1)))[:h, :w].astype(np.float32)
+        out.append(FlowAugmentedPredictor.assemble_input(tgt, src, flow))
+    return np.stack(out)
+
+
+def phase_flow_serving(device, *, hw=FLOW_HW, batch: int = FLOW_BATCH,
+                       smi: str = "") -> dict:
+    """Phase 43, a main path: ``FlowAugmentedPredictor`` answers requests of ``batch``, 5
+    and 1 inputs of the truncated DepthPoseNet over 11 channels (a seeded init, its
+    statistics warmed on FLOW_BATCH inputs, the first ``batch`` of which it serves)
+    through the folded forward: in float32 within
+    TOL_FORWARD of the f32 module forward, in bf16 (the default) within
+    TOL_FLOW_SERVING of it; frames/s of 4 batches in bf16 by CUDA events (host clock on
+    the CPU). The counts are set to 0 before the predictors are built and read after
+    their requests (no kernel of this package is on this path)."""
+    h, w = hw
+    inputs = flow_inputs(max(batch, FLOW_BATCH), hw)   # the statistics see FLOW_BATCH
+    x = torch.from_numpy(inputs).to(device)
+    variables = warmed_variables(
+        DepthPoseNet(in_channels=11, generator=torch.Generator().manual_seed(SEED)),
+        x.permute(0, 3, 1, 2))
+    inputs, x = inputs[:batch], x[:batch]
+    model = depth_pose_from_variables(variables, device=device)
+    with torch.no_grad():
+        ref = model.forward_nhwc(x)[0][0][..., 0].cpu().numpy()
+    ref = np.concatenate([ref, ref[:5], ref[:1]])
+    reset_counts()   # a main path: flow-augmented serving
+    gots, preds = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        pred = FlowAugmentedPredictor(variables["params"], variables["batch_stats"],
+                                      height=h, width=w, batch_size=batch, dtype=dtype,
+                                      device=device)
+        got = np.concatenate([pred.predict(inputs[:n]) for n in (batch, 5, 1)])
+        if not pred.uses_fast_path or got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError(f"flow serving {dtype}: fast path {pred.uses_fast_path}, "
+                                 f"{got.shape} or non-finite")
+        gots[dtype], preds[dtype] = got, pred
+    counts = read_counts()
+    f32_err = np.abs(gots[torch.float32] - ref)
+    f32_ok = np.allclose(gots[torch.float32], ref, rtol=TOL_FORWARD, atol=TOL_FORWARD)
+    bf16 = np.abs(gots[torch.bfloat16] - ref)
+    bf16_ok = bf16.max() <= TOL_FLOW_SERVING[0] and bf16.mean() <= TOL_FLOW_SERVING[1]
+    many = np.concatenate([inputs] * 4)
+    pred = preds[torch.bfloat16]
+    pred.predict(many)   # warm-up
+    if torch.device(device).type == "cuda":
+        ms, clock = time_ms(lambda: pred.predict(many), 1, warmup=0), "CUDA events"
+    else:
+        t0 = time.perf_counter()
+        pred.predict(many)
+        ms, clock = (time.perf_counter() - t0) * 1e3, "host clock"
+    fps = len(many) / ms * 1e3
+    print(f"flow serving: FlowAugmentedPredictor (folded forward), requests of {batch}, 5, "
+          f"1 at {h}x{w}x11 (disparities {float(ref.min()):.3f} .. "
+          f"{float(ref.max()):.3f}): "
+          f"f32 abs err max {f32_err.max():.3e} to the f32 module forward, "
+          f"within rtol = atol {TOL_FORWARD:.0e}: {f32_ok}; bf16 abs err max "
+          f"{bf16.max():.3e}, mean {bf16.mean():.3e} (tolerance max "
+          f"{TOL_FLOW_SERVING[0]:.1e}, mean {TOL_FLOW_SERVING[1]:.1e}); bf16 "
+          f"{len(many)} frames in {ms:.2f} ms ({clock}), {fps:.1f} frames/s; launches "
+          f"{counts} [{smi}]")
+    if not (f32_ok and bf16_ok):
+        raise AssertionError("flow serving beyond its tolerances")
+    return {"counts": counts, "max_abs_err": float(bf16.max()),
+            "mean_abs_err": float(bf16.mean()), "frames_per_s": fps}
+
 def reset_counts() -> None:
     fused_tail.launches = bilinear_sample.launches = bilinear_sample.backward_launches = 0
     smoothness_fused.launches = smoothness_fused.backward_launches = 0
@@ -3458,6 +3728,26 @@ def main() -> None:
     colon_times = phase_colon_times("cuda", info["smi"])
     stamp("colon-pair step parity and times")
 
+    with tempfile.TemporaryDirectory() as tmp:
+        rf = phase_refine("cuda", tmp, smi=info["smi"])   # a main path, counts inside
+    _check_per_step("refinement", rf["per_step"], refine_per_step(refine.SAMPLER))
+    if rf["groups"] != [(RF_WARPS, RF_WARPS)] * RF_STEPS:
+        raise AssertionError(f"refinement: smoothness groups (maps, eligible C=1 maps) "
+                             f"{rf['groups']}, not {RF_WARPS} a step")
+    rf_counts = {k: sum(n[k] for n in rf["per_step"]) for k in rf["per_step"][0]}
+    print(f"refinement launches: {rf_counts} in {RF_STEPS} steps, "
+          f"{refine_per_step(refine.SAMPLER)} a step and nothing else [{info['smi']}]")
+    phase_refine_parity("cuda", info["smi"])
+    rf_times = phase_refine_times("cuda", info["smi"])
+    flow = phase_flow_serving("cuda", smi=info["smi"])   # a main path, counts inside
+    if any(flow["counts"].values()):
+        raise AssertionError(f"flow-augmented serving launched {flow['counts']}")
+    stamp("refinement and flow-augmented serving")
+    # ms/step of the f32 refine step on each sampler route and the median of the rounds'
+    # paired differences (the preset's rule), for the kernels' rows
+    rf_step_ms = {**{k: rf_times[k]["ms"] for k in ("pallas", "xla")},
+                  "median_diff": rf_times["median_diff"]}
+
     kernels = [{
         "name": "fused_tail", "route": "cuda",
         "source": "tf_depth_estimation_torch/csrc/fused_tail.cu",
@@ -3519,6 +3809,12 @@ def main() -> None:
            for config in COLON_TIMED},
         **{f"{config}_device_ms": colon_times[config]["sampler_ms"]
            for config in COLON_TIMED},
+        # refinement (20 f32 steps at 224x224, B=1, 4 warps a step): forward + backward
+        # launches in phase 40's run (0 where the preset is "xla"), ms/step on both routes
+        # with the median paired difference, and the sampler kernels' device time a step
+        # of the "pallas" route (profile_step)
+        "refine_launches": rf_counts["bilinear_sample"] + rf_counts["bilinear_sample_bwd"],
+        "refine_step_ms": rf_step_ms, "refine_device_ms": rf_times["pallas"]["sampler_ms"],
     }, {
         # forward and backward of a config-4 step's group (12 maps, B=10, 224x480 down to
         # 28x60); launches: forward + backward in the config-4 run; per_map_loop_ms: the
@@ -3544,6 +3840,12 @@ def main() -> None:
         **{f"{m}_launches": colon_counts[m]["smoothness_fwd"]
            + colon_counts[m]["smoothness_bwd"] for m in COLON_MODES},
         **{f"{config}_device_ms": colon_times[config]["smooth_ms"] for config in COLON_TIMED},
+        # refinement: forward + backward launches in phase 40's run (4 maps a step), the
+        # step's ms/step as for bilinear_sample, the kernels' device time a step of the
+        # preset's route (profile_step)
+        "refine_launches": rf_counts["smoothness_fwd"] + rf_counts["smoothness_bwd"],
+        "refine_step_ms": rf_step_ms,
+        "refine_device_ms": rf_times[refine.SAMPLER]["smooth_ms"],
     }, {
         # forward and backward of phase 2's group of a step (4 pairs, B=1, 192x256 down to
         # 24x32, delta 2); launches: forward + backward in both phases' runs;

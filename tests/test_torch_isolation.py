@@ -9,7 +9,8 @@ distillation with its step parity and the device cache, ``depth_only --turbo`` w
 depth serving from a checkpoint directory and through the module forward, and the
 DeMoN-stream families: config 5 with its checkpoint served, and both L/R modes, and the
 colon-pair families: optflow_family's five modes and dim11, with the sfm checkpoint
-served through the module forward.
+served through the module forward; and refinement against a COLMAP model through its CLI
+and flow-augmented serving (in the pair-serving child).
 
 The children run beside the other pytest workers, so each keeps PyTorch to two threads:
 one child with every path and PyTorch's default of a thread per core took ~4x its time
@@ -118,6 +119,16 @@ for full in (True, False):
     served = chip_smoke.phase_pair_serving("cpu", variables, height=32, width=64, batch=2,
                                           dtype=torch.float32)
     assert served["frames_per_s"] > 0 and fused_tail.launches == 0, served
+# refinement through its CLI (on the CPU both sampler routes are the plain version: 4 plain
+# samplings a step, no launch) and the flow-augmented predictor, at 32x48
+with tempfile.TemporaryDirectory() as tmp:
+    rf = chip_smoke.phase_refine("cpu", tmp, hw=(32, 48), points=8, steps=2)
+chip_smoke._check_per_step("refinement", rf["per_step"],
+                           {"plain_samples": chip_smoke.RF_WARPS})
+assert rf["groups"] == [(4, 4)] * 2, rf["groups"]
+chip_smoke.phase_refine_parity("cpu", "", hw=(32, 48))
+flow = chip_smoke.phase_flow_serving("cpu", hw=(32, 48), batch=2)
+assert flow["frames_per_s"] > 0 and not any(flow["counts"].values()), flow
 """,
     "turbo_serving": r"""
 small = lambda name: (48, 96) if name == "colon" else (64, 96)
@@ -238,7 +249,13 @@ def test_every_port_module_is_imported_by_the_child():
             "tf_depth_estimation_torch.train.experiments.on_demon",
             "tf_depth_estimation_torch.train.experiments.depth_then_cam_lr",
             "tf_depth_estimation_torch.train.experiments.optflow_family",
-            "tf_depth_estimation_torch.train.experiments.dim11"} <= names
+            "tf_depth_estimation_torch.train.experiments.dim11",
+            "tf_depth_estimation_torch.colmap.io",
+            "tf_depth_estimation_torch.colmap.scene_manager",
+            "tf_depth_estimation_torch.infer.refine",
+            "tf_depth_estimation_torch.infer.refine_cli",
+            "tf_depth_estimation_torch.models.upconv",
+            "tf_depth_estimation_torch.data.manifest"} <= names
 
 
 def test_no_port_file_names_jax_in_an_import():

@@ -14,7 +14,10 @@ full-resolution DepthPoseNet on self-supervised depth and pose
 (``train.experiments.depth_then_cam``, with the fused warp sampler on the same kernels
 under JAX's eligibility rule), evaluates the pair family's checkpoints
 (``train.experiments.eval_harness``) and serves depth and pose for consecutive frames
-(``infer.PairPredictor`` over ``infer.fast_depth_pose_forward``).
+(``infer.PairPredictor`` over ``infer.fast_depth_pose_forward``). It refines depth4
+DispNet's weights on one image pair against a COLMAP model (``infer.refine_cli``, with the
+smoothness and sampler kernels on every step) and serves depth from the flow-augmented
+input (``infer.FlowAugmentedPredictor``).
 """
 from tf_depth_estimation_torch.infer import DepthPredictor, fast_depth_forward
 from tf_depth_estimation_torch.models import DispNet, DispNetVariant

@@ -1,6 +1,11 @@
-"""The packed-pair colon loaders (port of ``PairDepthDataset`` and ``Dim11Dataset`` in
-``tf_depth_estimation_tpu/data/colon.py``, ref ``imageselect_Dataloader_optflow.py`` and
+"""The colon loaders (port of ``SimpleDepthDataset``, ``PairDepthDataset`` and
+``Dim11Dataset`` in ``tf_depth_estimation_tpu/data/colon.py``, ref
+``imageselect_Dataloader.py``, ``imageselect_Dataloader_optflow.py`` and
 ``imageselect_Dataloader_optflow_dim11.py``).
+
+``SimpleDepthDataset``: a ``<split>.txt`` of image paths, each label beside its image at
+``<image>_z.bin`` (raw float32), the image resized to 224x224 and /255, the label
+area-resized and inverted to 1/depth.
 
 Each ``<split>.txt`` line ``subfolder id1 id2`` names a side-by-side pair JPEG
 ``id1_id2.jpg`` (width 2x: target | source), a raw float32 depth
@@ -55,6 +60,39 @@ def _decode_jpeg(path: str) -> np.ndarray:
 
 def _read_bin_depth(path: str, height: int, width: int) -> np.ndarray:
     return np.fromfile(path, dtype=np.float32).reshape(height, width, 1)
+
+
+@dataclasses.dataclass
+class SimpleDepthDataset:
+    """Single image + inverse-depth label (ref ``imageselect_Dataloader.py:8-133``)."""
+
+    dataset_dir: str
+    split: str = "train"
+    resized_height: int = 224
+    resized_width: int = 224
+
+    def __post_init__(self):
+        with open(os.path.join(self.dataset_dir, f"{self.split}.txt")) as f:
+            self.image_paths = [l.strip() for l in f if l.strip()]
+        self.label_paths = [p + "_z.bin" for p in self.image_paths]
+
+    def __len__(self):
+        return len(self.image_paths)
+
+    def __getitem__(self, i: int):
+        rh, rw = self.resized_height, self.resized_width
+        img = _resize_bilinear_np(_decode_jpeg(self.image_paths[i]), (rh, rw)) / 255.0
+        # a label of another size than the training size is taken as square, side^2
+        # values (the reference's manifests store it at the training size); area-resize,
+        # then invert (imageselect_Dataloader.py:97-101)
+        d = np.fromfile(self.label_paths[i], dtype=np.float32)
+        if d.size == rh * rw:
+            label = d.reshape(rh, rw, 1)
+        else:
+            side = int(round(d.size ** 0.5))
+            label = d.reshape(side, side, 1)
+        label = 1.0 / _resize_area_np(label, (rh, rw))
+        return {"image": img.astype(np.float32), "label": label.astype(np.float32)}
 
 
 @dataclasses.dataclass

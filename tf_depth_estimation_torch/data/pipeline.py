@@ -3,7 +3,8 @@
 ``BatchLoader`` is the port of ``tf_depth_estimation_tpu/data/pipeline.py:BatchLoader``
 (shuffled epochs, fixed batch size, remainder dropped, worker threads), ``StreamLoader``
 that of its ``StreamLoader`` (an endless stream of ``dataset.sample(rng)`` draws, the
-DeMoN training input). ``device_prefetch``
+DeMoN training input), ``IterBatcher`` that of its ``IterBatcher`` (batches of a
+restartable sample stream). ``device_prefetch``
 replaces the JAX package's ``jax.device_put`` double buffer: each batch is copied into
 pinned host memory and sent with a non-blocking copy on the current stream, ``size``
 batches ahead of the consumer, so the next batch's copy overlaps the current step.
@@ -13,7 +14,7 @@ from __future__ import annotations
 import collections
 import queue
 import threading
-from typing import Iterator, Optional, Sequence
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -149,6 +150,35 @@ class StreamLoader:
                     pass
                 for t in workers:
                     t.join(timeout=0.01)
+
+
+class IterBatcher:
+    """Batches of a restartable stream of sample dicts: ``factory()`` returns a fresh
+    sample iterator, and each run of it to its end is one epoch. A partial batch carries
+    across an epoch's end (``tf.train.batch`` batches a continuous queue), so only the
+    last one, after the last epoch, is dropped. A source that yields no sample raises
+    ``ValueError`` rather than yield nothing (or loop forever with ``num_epochs=None``)."""
+
+    def __init__(self, factory: Callable[[], Iterator[dict]], batch_size: int,
+                 num_epochs: Optional[int] = None):
+        self.factory = factory
+        self.batch_size = batch_size
+        self.num_epochs = num_epochs
+
+    def __iter__(self) -> Iterator[dict]:
+        epoch = 0
+        buf = []
+        while self.num_epochs is None or epoch < self.num_epochs:
+            produced = 0
+            for sample in self.factory():
+                produced += 1
+                buf.append(sample)
+                if len(buf) == self.batch_size:
+                    yield BatchLoader._collate(buf)
+                    buf = []
+            if produced == 0:
+                raise ValueError("IterBatcher: source iterator produced no samples")
+            epoch += 1
 
 
 def to_device(batch: dict, device) -> dict:

@@ -1,5 +1,6 @@
 """Batched depth and pose inference: the port of ``tf_depth_estimation_tpu/infer/
-predictor.py``'s ``DepthPredictor``, ``TurboPredictor`` and ``PairPredictor``.
+predictor.py``'s ``DepthPredictor``, ``TurboPredictor``, ``FlowAugmentedPredictor`` and
+``PairPredictor``.
 
 Frames are batched on the host; full batches run at ``batch_size`` and the ragged tail is
 padded only up to the next power of two, so the tail wastes less than itself in compute.
@@ -19,6 +20,7 @@ from typing import Callable, List, Optional, Union
 import numpy as np
 import torch
 
+from tf_depth_estimation_torch.colmap.io import bilinear_interpolate
 from tf_depth_estimation_torch.infer.fast import fold_weights, folded_forward
 from tf_depth_estimation_torch.infer.fast_pose import fold_depth_pose, folded_depth_pose_forward
 from tf_depth_estimation_torch.infer.fast_turbo import fold_turbo, folded_turbo_forward
@@ -218,6 +220,68 @@ class TurboPredictor(_SingleImagePredictor):
         self._fwd = torch.inference_mode()(forward)
 
 
+def _depth_pose_forward(variables: dict, *, full_resolution: bool, in_channels: int,
+                        dtype: torch.dtype, use_fast: bool, device: torch.device):
+    """``forward(x [b, H, W, C]) -> (disps, pose, masks)`` of a DepthPoseNet, NHWC: the
+    folded forward (``infer/fast_pose.py``) or the module's eval forward in ``dtype``."""
+    if use_fast:
+        folded = fold_depth_pose(variables, dtype=dtype, device=device)
+        return lambda x: folded_depth_pose_forward(folded, x,
+                                                   full_resolution=full_resolution)
+    model = DepthPoseNet(full_resolution=full_resolution, dtype=dtype,
+                         in_channels=in_channels)
+    load_variables(model, variables)
+    model = model.to(device).eval()
+    return lambda x: model.forward_nhwc(x.float())
+
+
+class FlowAugmentedPredictor:
+    """Depth from the 11-channel flow-augmented input [I | I1 | flow (2) | warp(I1, flow)]
+    with DepthPoseNet (ref ``batch_prediction_optflow.py:106-139``; JAX
+    ``infer/predictor.py:FlowAugmentedPredictor``).
+
+    ``assemble_input`` builds one frame's input on the host with the NumPy bilinear
+    sampler (``colmap/io.py:bilinear_interpolate``), as the reference and the JAX package
+    do; ``predict`` batches the inputs through the folded forward (``infer/fast_pose.py``,
+    where ``_resolve_use_fast`` allows) or the module's eval forward in ``dtype``, and
+    returns the finest disparity. ``params`` / ``batch_stats`` are the JAX variables'
+    collections (numpy trees) of a net whose cnv1 takes 11 channels.
+    """
+
+    def __init__(self, params, batch_stats=None, *, height: int = 192, width: int = 256,
+                 full_resolution: bool = False, batch_size: int = 16,
+                 dtype: torch.dtype = torch.bfloat16, use_fast: Optional[bool] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        self.height, self.width, self.batch_size = height, width, batch_size
+        self.device = torch.device(device)
+        variables = {"params": params, "batch_stats": batch_stats or {}}
+        self.uses_fast_path = _resolve_use_fast(use_fast, batch_stats, height, width)
+        forward = _depth_pose_forward(variables, full_resolution=full_resolution,
+                                      in_channels=11, dtype=dtype,
+                                      use_fast=self.uses_fast_path, device=self.device)
+        self._fwd = torch.inference_mode()(lambda x: forward(x)[0][0][..., 0])
+
+    @staticmethod
+    def assemble_input(I: np.ndarray, I1: np.ndarray, flow: np.ndarray) -> np.ndarray:
+        """The [H, W, 11] float32 input of one frame pair and its flow [H, W, 2]."""
+        H, W = I1.shape[:2]
+        xs, ys = np.meshgrid(np.linspace(0, W - 1, W), np.linspace(0, H - 1, H))
+        I_warp = bilinear_interpolate(
+            I1, (xs + flow[:, :, 0]).reshape(-1), (ys + flow[:, :, 1]).reshape(-1)
+        ).reshape(H, W, 3).astype(np.float32)
+        return np.concatenate(
+            [I.astype(np.float32), I1.astype(np.float32), flow.astype(np.float32), I_warp],
+            axis=2)
+
+    def predict(self, inputs: np.ndarray) -> np.ndarray:
+        """[N, H, W, 11] -> [N, h, w] float32 disparity (pow2-bucketed ragged tail)."""
+        if inputs.shape[1:] != (self.height, self.width, 11):
+            raise ValueError(f"inputs must be [N, {self.height}, {self.width}, 11], "
+                             f"got {inputs.shape}")
+        return np.concatenate(_batched_apply(self._fwd, inputs, self.batch_size,
+                                             self.device), 0)
+
+
 class PairPredictor:
     """Consecutive-frame depth and 6-DoF pose export with DepthPoseNet (ref
     ``batch_prediction_cam_est.py``).
@@ -237,23 +301,15 @@ class PairPredictor:
         self.device = torch.device(device)
         variables = {"params": params, "batch_stats": batch_stats or {}}
         self.uses_fast_path = _resolve_use_fast(use_fast, batch_stats, height, width)
-        if self.uses_fast_path:
-            folded = fold_depth_pose(variables, dtype=dtype, device=self.device)
+        forward = _depth_pose_forward(variables, full_resolution=full_resolution,
+                                      in_channels=6, dtype=dtype,
+                                      use_fast=self.uses_fast_path, device=self.device)
 
-            def forward(x):
-                disps, pose, _masks = folded_depth_pose_forward(
-                    folded, x, full_resolution=full_resolution)
-                return disps[0][..., 0], pose[:, 0]
-        else:
-            model = DepthPoseNet(full_resolution=full_resolution, dtype=dtype)
-            load_variables(model, variables)
-            model = model.to(self.device).eval()
+        def pair_forward(x):
+            disps, pose, _masks = forward(x)
+            return disps[0][..., 0], pose[:, 0]
 
-            def forward(x):
-                disps, pose, _masks = model(x.permute(0, 3, 1, 2).float())
-                return disps[0][:, 0], pose[:, 0]
-
-        self._fwd = torch.inference_mode()(forward)
+        self._fwd = torch.inference_mode()(pair_forward)
 
     def predict_pairs(self, frames: np.ndarray):
         """[N, H, W, 3] float32 or uint8 -> (disparity [N-1, h, w], pose [N-1, 6]) over

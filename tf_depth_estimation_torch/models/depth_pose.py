@@ -1,6 +1,6 @@
-"""Joint depth, camera-pose and explainability network as an ``nn.Module`` (NCHW inside).
+"""Joint depth, camera-pose and explainability networks as ``nn.Module``s (NCHW inside).
 
-Mirrors ``tf_depth_estimation_tpu/models/depth_pose.py:DepthPoseNet``, the reference's
+``DepthPoseNet`` mirrors ``tf_depth_estimation_tpu/models/depth_pose.py:DepthPoseNet``, the reference's
 ``depth_net`` of the pairwise experiments: the truncated-decoder variant
 (``nets_optflow_depth.py:151-276``, ``full_resolution=False``) and the full-resolution one
 (``nets_optflow_depth_pairtest.py:151-276``). A shared encoder cnv1..cnv6b feeds a pose
@@ -8,7 +8,13 @@ head (a stride-2 conv and a 1x1 linear conv, the UNSCALED mean over its pixels),
 explainability decoder from cnv5b, and a depth decoder through cnv7 whose heads are
 ``disp_scaling * sigmoid + min_disp``. The layers are the module's direct children, named
 as the flax module's, so the state dict's keys are the JAX tree's paths
-(``weights.py``). ``PoseExpNet`` comes with a later slice.
+(``weights.py``). ``in_channels`` is cnv1's input: 6 for a stacked pair, 11 for the
+flow-augmented input of ``infer/predictor.py:FlowAugmentedPredictor``.
+
+``PoseExpNet`` mirrors ``tf_depth_estimation_tpu/models/depth_pose.py:PoseExpNet``, the
+SfMLearner-style ``pose_exp_net`` (``nets.py:18-74``): five stride-2 convs, a pose head of
+two more and a 1x1 linear conv whose mean is scaled by 0.01, and an explainability decoder
+of five deconvs from cnv5 with a linear mask head at each of its last four.
 """
 from __future__ import annotations
 
@@ -27,10 +33,13 @@ ENCODER = (("cnv1", 6, 32, 7, 2), ("cnv1b", 32, 32, 7, 1), ("cnv2", 32, 64, 5, 2
            ("cnv5b", 512, 512, 3, 1), ("cnv6", 512, 512, 3, 2), ("cnv6b", 512, 512, 3, 1))
 # depth decoder levels 7..4: (deconv in, deconv out); the iconv takes out + skip channels
 DEPTH_LEVELS = ((7, 512, 512), (6, 512, 512), (5, 512, 256), (4, 256, 128))
+# PoseExpNet's explainability decoder: (level, deconv out, kernel of the deconv and of the
+# level's mask head); levels 4..1 carry a mask head
+EXP_LEVELS = ((5, 256, 3), (4, 128, 3), (3, 64, 3), (2, 32, 5), (1, 16, 7))
 
 
 class DepthPoseNet(nn.Module):
-    """``forward(image_pair [B, 6, H, W])`` returns ``(disps, pose, masks)``, float32:
+    """``forward(image_pair [B, in_channels, H, W])`` returns ``(disps, pose, masks)``, float32:
 
     * truncated: ``disps = [disp3, disp4]`` (1/4 and 1/8 resolution, [B, 1, h, w]),
       ``masks = [mask3, mask4]`` ([B, 2 * num_source, h, w] logits);
@@ -45,7 +54,7 @@ class DepthPoseNet(nn.Module):
     def __init__(self, full_resolution: bool = False, num_source: int = 1,
                  disp_scaling: float = 4.0, min_disp: float = 0.0,
                  bn_momentum: float = 0.99, generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, in_channels: int = 6):
         super().__init__()
         self.full_resolution = full_resolution
         self.num_source = num_source
@@ -64,7 +73,7 @@ class DepthPoseNet(nn.Module):
             self.add_module(name, TFConv2d(cin, cout, k, bias=True, generator=g))
 
         for name, cin, cout, k, s in ENCODER:
-            conv(name, cin, cout, k, s)
+            conv(name, in_channels if name == "cnv1" else cin, cout, k, s)
         conv("pose_cam_cnv7", 512, 256, 3, 2)
         head("pose_pred", 256, 6 * num_source, 1)
         deconv("exp_upcnv5", 512, 256, 3)
@@ -153,3 +162,58 @@ class DepthPoseNet(nn.Module):
         disps, pose, masks = self(image_pair.permute(0, 3, 1, 2))
         return ([d.permute(0, 2, 3, 1) for d in disps], pose,
                 [m.permute(0, 2, 3, 1) for m in masks])
+
+
+class PoseExpNet(nn.Module):
+    """``forward(inputs [B, in_channels, H, W])``, the target and ``num_source`` sources on
+    channels (``in_channels`` 3 * (1 + num_source) by default), returns ``(pose, masks)``:
+    ``pose`` [B, num_source, 6], 0.01 times the mean of the 1x1 head (``nets.py:47``), and
+    ``masks = [mask1 .. mask4]`` ([B, 2 * num_source, h, w] logits, full resolution
+    first), or four ``None`` without ``do_exp``, float32. ``dtype`` as in
+    ``DepthPoseNet``; batch-norm decay 0.999 (slim's default)."""
+
+    def __init__(self, num_source: int = 1, do_exp: bool = True, bn_momentum: float = 0.999,
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32, in_channels: Optional[int] = None):
+        super().__init__()
+        self.num_source, self.do_exp, self.dtype = num_source, do_exp, dtype
+        g, m = generator, bn_momentum
+        cin = in_channels or 3 * (1 + num_source)
+        for name, cout, k in (("cnv1", 16, 7), ("cnv2", 32, 5), ("cnv3", 64, 3),
+                              ("cnv4", 128, 3), ("cnv5", 256, 3), ("pose_cnv6", 256, 3),
+                              ("pose_cnv7", 256, 3)):
+            self.add_module(name, SlimConv(cin, cout, k, 2, generator=g, bn_momentum=m))
+            cin = cout
+        self.pose_pred = TFConv2d(256, 6 * num_source, 1, bias=True, generator=g)
+        if do_exp:
+            cin = 256
+            for lvl, cout, k in EXP_LEVELS:
+                self.add_module(f"exp_upcnv{lvl}", SlimConv(cin, cout, k, 2, transpose=True,
+                                                            generator=g, bn_momentum=m))
+                if lvl <= 4:
+                    self.add_module(f"mask{lvl}", TFConv2d(cout, 2 * num_source, k,
+                                                           bias=True, generator=g))
+                cin = cout
+
+    def forward(self, inputs: torch.Tensor
+                ) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
+        layer = self.get_submodule
+        cnv5 = inputs.to(self.dtype)
+        for name in ("cnv1", "cnv2", "cnv3", "cnv4", "cnv5"):
+            cnv5 = layer(name)(cnv5)
+        cam = layer("pose_cnv7")(layer("pose_cnv6")(cnv5))
+        pose = 0.01 * self.pose_pred(cam).float().mean((2, 3)).reshape(-1, self.num_source, 6)
+        if not self.do_exp:
+            return pose, [None, None, None, None]
+        x, masks = cnv5, []
+        for lvl, _, _ in EXP_LEVELS:
+            x = layer(f"exp_upcnv{lvl}")(x)
+            if lvl <= 4:
+                masks.insert(0, layer(f"mask{lvl}")(x).float())
+        return pose, masks
+
+    def forward_nhwc(self, inputs: torch.Tensor
+                     ) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
+        """``forward`` on [B, H, W, C] inputs, the masks [B, h, w, 2 * num_source]."""
+        pose, masks = self(inputs.permute(0, 3, 1, 2))
+        return pose, [m if m is None else m.permute(0, 2, 3, 1) for m in masks]

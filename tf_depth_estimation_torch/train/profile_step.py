@@ -17,7 +17,11 @@ pair, 192x256, batch 16), ``lr_full`` (``depth_then_cam_lr``: LRNet on a DeMoN p
 ``optflow_family_{only_image,optflow_only,optflow3,pre,sfm}`` (``optflow_family --mode
 ...``: DispNet depth4 or sfm, 224x480, batch 10) or ``dim11`` (the full-resolution
 DepthPoseNet on a colon pair in [-0.5, 0.5], 224x224, batch 10), bf16, as the CLIs train,
-the DeMoN-stream and colon-pair configs built by their CLIs' own functions.
+the DeMoN-stream and colon-pair configs built by their CLIs' own functions, or ``refine``
+(test-time refinement, ``infer/refine.py``'s own state and step: depth4 DispNet in
+float32, as ``refine_depth`` runs it, on one ``colmap_pair_scene`` pair at 224x224,
+batch 1; ``--sampler kernel`` is the sampler kernels and ``plain`` the plain sampler,
+whatever the preset ``infer/refine.py:SAMPLER``).
 ``--sampler plain`` (the warps of configs 3 and 4 and of the colon-pair family, and the
 samplings of the L/R family), ``--smoothness plain`` and ``--sig plain`` route those terms
 to their plain versions for the measurement, as a yardstick for the kernels (the port
@@ -39,7 +43,13 @@ import torch
 
 from tf_depth_estimation_torch.data.demon import DemonReaderParams, augment, preprocess
 from tf_depth_estimation_torch.data.pipeline import BatchLoader, to_device
-from tf_depth_estimation_torch.data.synthetic import demon_record, make_pair_scene, pose_matrix
+from tf_depth_estimation_torch.data.synthetic import (
+    colmap_pair_scene,
+    demon_record,
+    make_pair_scene,
+    pose_matrix,
+)
+from tf_depth_estimation_torch.infer import refine
 from tf_depth_estimation_torch.losses import pipelines
 from tf_depth_estimation_torch.losses.config import LossWeights
 from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
@@ -235,6 +245,19 @@ def _distill_setup(batch, height, width, device, sampler):
     return w, create_train_state(model), lambda st, d: step(st, d["image"]), {"image": images}
 
 
+def _refine_setup(batch, height, width, device, sampler):
+    """refine_depth's state and step on one pair (batch 1 whatever ``batch``)."""
+    height, width = height or 224, width or 224
+    scene = colmap_pair_scene(np.random.RandomState(0), height, width)
+    inputs = refine.refine_inputs(*scene["images"], scene["relative_pose"], scene["K"],
+                                  scene["sparse_xy"], scene["sparse_z"], device=device)
+    route = "xla" if sampler == "plain" else "pallas"
+    w = dataclasses.replace(LossWeights.depth_only(), height=height, width=width,
+                            sampler=route)
+    return (w, refine.refine_state(device=device), refine.make_refine_step(sampler=route),
+            inputs)
+
+
 # the DeMoN-stream configs -> (their CLI, its flags)
 DEMON_CLIS = {"on_demon": (on_demon, ()), "lr_full": (depth_then_cam_lr, ()),
               "lr_gt": (depth_then_cam_lr, ("--gt_pose",))}
@@ -258,9 +281,10 @@ CONFIGS = {
     "distill": _distill_setup,
     **{config: _cli_setup(cli, *flags) for config, (cli, flags) in DEMON_CLIS.items()},
     **{config: _colon_setup(cli, *flags) for config, (cli, flags) in COLON_CLIS.items()},
+    "refine": _refine_setup,
 }
 # the configurations whose warps a sampler runs
-SAMPLED = ("optflow_combine", "depth_then_cam", "lr_full", "lr_gt", "dim11",
+SAMPLED = ("optflow_combine", "depth_then_cam", "lr_full", "lr_gt", "dim11", "refine",
            *(f"optflow_family_{m}" for m in ("only_image", "optflow_only", "sfm")))
 
 
@@ -304,7 +328,8 @@ def profile(steps: int = 3, sampler: str = "kernel", device="cuda", batch: int =
     busy = sum(t for t, _ in by_name.values())
     what = (f"sampler={w.sampler}, " if config in SAMPLED else "") \
         + f"smoothness={smoothness}, sig={sig}, "
-    print(f"profile: {config}, bfloat16, {w.height}x{w.width}, batch {batch}, {what}"
+    print(f"profile: {config}, {'float32' if config == 'refine' else 'bfloat16'}, "
+          f"{w.height}x{w.width}, batch {batch}, {what}"
           f"{steps} steps: wall {wall_us / steps / 1e3:.2f} ms/step (profiler on), kernel "
           f"time {busy / steps / 1e3:.2f} ms/step, busy share {busy / wall_us:.1%}, "
           f"{len(kernels) // steps} kernel launches/step")

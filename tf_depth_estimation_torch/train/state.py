@@ -18,7 +18,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch import nn
 
-from tf_depth_estimation_torch.weights import load_variables, state_dict_to_variables
+from tf_depth_estimation_torch.weights import load_variables, module_variables
 
 
 def adam(params, learning_rate: float, beta1: float = 0.9) -> torch.optim.Adam:
@@ -41,7 +41,7 @@ class TrainState:
 
     def variables(self) -> Dict[str, Any]:
         """The JAX variables tree ``{"params", "batch_stats"}`` as float32 numpy."""
-        return state_dict_to_variables(self.model.state_dict())
+        return module_variables(self.model)
 
     def load_variables(self, variables: Dict[str, Any]) -> None:
         """Load a JAX variables tree (e.g. a JAX ``create_train_state`` init)."""

@@ -1,6 +1,6 @@
-"""The weight bridge: JAX variables tree <-> the port's ``DispNet``, ``DepthPoseNet`` and
-``TurboDepthNet`` state dicts, and ``LRNet``'s, whose two submodules hold the
-``single/...`` and ``pair/...`` trees.
+"""The weight bridge: JAX variables tree <-> the port's ``DispNet``, ``DepthPoseNet``,
+``PoseExpNet``, ``UpconvNet`` and ``TurboDepthNet`` state dicts, and ``LRNet``'s, whose two
+submodules hold the ``single/...`` and ``pair/...`` trees.
 
 A layer of the JAX tree (numpy arrays from a ``.npz`` or from a flax ``init``) is a node
 holding ``Conv_0`` or ``TFConvTranspose_0`` (``kernel``, and ``bias`` where no batch norm
@@ -16,19 +16,24 @@ layer by the same path joined with dots: ``DispNet``'s layers sit under the part
 (``cnv1``, ``exp_upcnv5``, ``pose_pred``; ``stem``, ``up1``, ``disp1``). Conv kernels are HWIO and become OIHW. TF transposed-conv kernels (the
 ``upcnv`` layers) are ``[kh, kw, out, in]`` and become ``conv_transpose2d``'s
 ``[in, out, kh, kw]``; both are the same axis permutation, and neither is flipped
-(``models/layers.py`` says why).
+(``models/layers.py`` says why). A state dict alone does not say which convs are
+transposed: ``state_dict_to_variables`` takes the layers named ``upcnv`` as transposed
+unless told, and ``module_variables`` tells it from the module (``UpconvNet``'s ``upcnv``
+laterals are plain 1x1 convs).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Collection, Dict, Iterable, Optional
 
 import numpy as np
 import torch
 
 from tf_depth_estimation_torch.models.composite import LRNet
-from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
+from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet, PoseExpNet
 from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
+from tf_depth_estimation_torch.models.layers import TFConvTranspose
 from tf_depth_estimation_torch.models.turbo import TurboDepthNet, TurboVariant
+from tf_depth_estimation_torch.models.upconv import UpconvNet
 
 _TO_TORCH = (3, 2, 0, 1)    # HWIO -> OIHW, and [kh, kw, out, in] -> [in, out, kh, kw]
 _TO_JAX = (2, 3, 1, 0)
@@ -72,8 +77,11 @@ def variables_to_state_dict(variables: Dict[str, Any],
     return {k: v.contiguous() for k, v in sd.items()}
 
 
-def state_dict_to_variables(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """State dict -> JAX variables tree of float32 numpy arrays."""
+def state_dict_to_variables(sd: Dict[str, torch.Tensor],
+                            transposed: Optional[Collection[str]] = None) -> Dict[str, Any]:
+    """State dict -> JAX variables tree of float32 numpy arrays. ``transposed`` holds the
+    paths (``decoder.upcnv7``) of the layers whose conv is transposed; None takes those
+    with ``upcnv`` in their name."""
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     n = lambda v: v.detach().cpu().float().numpy()
@@ -86,7 +94,9 @@ def state_dict_to_variables(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     for key, v in sd.items():
         parts = key.split(".")
         if parts[-2] == "conv":
-            kind = "TFConvTranspose_0" if "upcnv" in parts[-3] else "Conv_0"
+            is_t = ("upcnv" in parts[-3] if transposed is None
+                    else ".".join(parts[:-2]) in transposed)
+            kind = "TFConvTranspose_0" if is_t else "Conv_0"
             conv = node(params, parts[:-2]).setdefault(kind, {})
             if parts[-1] == "weight":
                 conv["kernel"] = n(v).transpose(_TO_JAX)
@@ -103,6 +113,13 @@ def state_dict_to_variables(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         else:
             node(params, parts[:-1]).setdefault("Conv_0", {})["bias"] = n(v)
     return {"params": params, "batch_stats": stats}
+
+
+def module_variables(model: torch.nn.Module) -> Dict[str, Any]:
+    """``model``'s JAX variables tree, its transposed convs found by their type."""
+    transposed = {name.rsplit(".", 1)[0] for name, m in model.named_modules()
+                  if isinstance(m, TFConvTranspose)}
+    return state_dict_to_variables(model.state_dict(), transposed)
 
 
 def load_variables(model: torch.nn.Module, variables: Dict[str, Any]) -> None:
@@ -142,13 +159,38 @@ def dispnet_from_variables(variables: Dict[str, Any], *, device="cuda") -> DispN
     return model.eval().to(device)
 
 
+def _kernel_shape(params: Dict[str, Any], layer: str) -> tuple:
+    return np.shape(params[layer]["Conv_0"]["kernel"])
+
+
 def depth_pose_from_variables(variables: Dict[str, Any], *, device="cuda") -> DepthPoseNet:
     """An eval-mode float32 ``DepthPoseNet`` on ``device`` holding ``variables`` (strict
-    load): full resolution where the tree has ``disp1``, and as many sources as
-    ``pose_pred`` has outputs / 6."""
+    load): full resolution where the tree has ``disp1``, as many sources as ``pose_pred``
+    has outputs / 6, and the input channels of ``cnv1``'s kernel (11 for the
+    flow-augmented net)."""
     params = variables["params"]
     model = DepthPoseNet(full_resolution="disp1" in params,
-                         num_source=np.shape(params["pose_pred"]["Conv_0"]["kernel"])[3] // 6)
+                         num_source=_kernel_shape(params, "pose_pred")[3] // 6,
+                         in_channels=_kernel_shape(params, "cnv1")[2])
+    load_variables(model, variables)
+    return model.eval().to(device)
+
+
+def pose_exp_from_variables(variables: Dict[str, Any], *, device="cuda") -> PoseExpNet:
+    """An eval-mode float32 ``PoseExpNet`` on ``device`` holding ``variables`` (strict
+    load): as many sources as ``pose_pred`` has outputs / 6, the explainability decoder
+    where the tree has ``mask1``, and the input channels of ``cnv1``'s kernel."""
+    params = variables["params"]
+    model = PoseExpNet(num_source=_kernel_shape(params, "pose_pred")[3] // 6,
+                       do_exp="mask1" in params, in_channels=_kernel_shape(params, "cnv1")[2])
+    load_variables(model, variables)
+    return model.eval().to(device)
+
+
+def upconv_from_variables(variables: Dict[str, Any], *, device="cuda") -> UpconvNet:
+    """An eval-mode float32 ``UpconvNet`` on ``device`` holding ``variables`` (strict
+    load), r0's channels those of ``upcnv5``'s kernel."""
+    model = UpconvNet(in_channels=_kernel_shape(variables["params"], "upcnv5")[2])
     load_variables(model, variables)
     return model.eval().to(device)
 
