@@ -13,8 +13,10 @@ truncated DepthPoseNet, ``on_demon``) and the symmetric L/R family (``LRNet``,
 ``depth_then_cam_lr`` with and without ``--gt_pose``), and train the colon-pair families:
 ``optflow_family``'s five modes on DispNet depth4 and sfm at 224x480, and ``dim11`` on the
 full-resolution DepthPoseNet at 224x224, refine depth4 DispNet's weights on one pair
-against a COLMAP model at 224x224 (``infer/refine_cli.py``), and serve the flow-augmented
-DepthPoseNet at 192x256.
+against a COLMAP model at 224x224 (``infer/refine_cli.py``), serve the flow-augmented
+DepthPoseNet at 192x256, train config 2 data-parallel over NCCL at world size 1 with the
+multi-device dry run, train through the C++ loader, write the rich summaries and a
+profiler trace, and serve TF1-imported weights.
 
     python3 chip_smoke.py
 
@@ -256,6 +258,35 @@ Phases, each raising on failure:
      DepthPoseNet over 11 channels, a seeded init warmed on the inputs) answers requests
      of 16, 5 and 1 inputs at 192x256 in bf16 through the folded forward, within phase
      5's limits of the f32 module forward; frames/s by CUDA events; no launch.
+ 44. data parallelism, three main paths: the default process group over NCCL at world
+     size 1 (a ``FileStore``); 5 bf16 data-parallel config-2 steps at 240x720, B=10 (the
+     synced batch norm, the averaged gradients and metrics of ``parallel/dp.py``), counted
+     per step: 1 + 1 smoothness launches, and under the profiler at least one NCCL
+     all-reduce kernel a step; one f32 data-parallel step against the single-process
+     step from one init and batch (loss rel 1e-6, params within 2 lr), and the pair again
+     computed in float64 (Adam's first moments, the gradients, within 1e-5 of each
+     parameter's largest); the dry run's three phases (``parallel/dryrun.py:run_phases``):
+     3 pairwise steps with sig 1 + 1 each, a distill step with one ``fused_tail`` launch,
+     the checkpoint round trip (weights and Adam's state bit-equal); then each of those
+     sig group calls (B=2, 32x64 .. 4x8) and the f32 fused tail (B=2, 64x96) held against
+     its plain version on the inputs the dry run gave it;
+ 45. the sharded predictor: ``DepthPredictor(num_devices=1)`` answers as the default,
+     bit for bit; ``num_devices`` above the card count raises;
+ 46. the C++ loader, a main path: ``native/fastloader.cc`` built with g++ (its seconds
+     printed), its samples within the CPU test's limits of the NumPy dataset, then
+     ``depth_only --native_loader`` for 5 bf16 steps at 240x720 (1 + 1 smoothness a
+     step); left out, and said so, only where the loader cannot build;
+ 47. the summaries and the profiler hook, two main paths: split_training's phase 1 with
+     ``--rich_summaries --tensorboard`` and ``depth_only --rich_summaries``, 5 steps each
+     at the CLIs' defaults with ``--image_summary_freq 2`` (sig 1 + 1 and smoothness
+     1 + 1 a step), their event files holding the JAX package's scalar, image and
+     histogram tags where the tensorboard package is installed, else the "tensorboard
+     writer unavailable" line; then ``run_training(profile_dir=...)`` on config 2, whose
+     one trace names the smoothness kernels;
+ 48. the TF1 importer, a main path: seeded arrays under the reference's slim names
+     through ``import_tf1_variables`` into depth4 DispNet, served by ``DepthPredictor``
+     at 576x384, B=8 (one ``fused_tail`` launch), bit-equal to serving the same variables
+     directly.
 The GPU machine has no ``h5py``, so the smoke cannot write the DeMoN HDF5 files that the
 split_training, depth_then_cam, on_demon and depth_then_cam_lr CLIs read
 (``data/demon.py``): phases 15, 19, 33 and 34 feed the CLIs' train functions batches of
@@ -283,7 +314,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from tf_depth_estimation_torch.data import native
 from tf_depth_estimation_torch.data.colon import PairDepthDataset
 from tf_depth_estimation_torch.data.device_cache import DeviceCache
 from tf_depth_estimation_torch.data.pipeline import BatchLoader, to_device
@@ -295,6 +328,7 @@ from tf_depth_estimation_torch.data.synthetic import (
 )
 from tf_depth_estimation_torch.geometry.warp import projective_inverse_warp
 from tf_depth_estimation_torch.infer import cli as infer_cli
+from tf_depth_estimation_torch.infer import fast as infer_fast
 from tf_depth_estimation_torch.infer import refine, refine_cli
 from tf_depth_estimation_torch.infer.fast import (
     fast_depth_forward,
@@ -340,6 +374,8 @@ from tf_depth_estimation_torch.ops.fused_tail import (
     fused_tail_reference,
 )
 from tf_depth_estimation_torch.ops.schedules import exponential_decay
+from tf_depth_estimation_torch.parallel import dryrun, init_process_group, make_dp_step
+from tf_depth_estimation_torch.parallel.dp import moment_gap
 from tf_depth_estimation_torch.ops.sig import sig_l2_plain
 from tf_depth_estimation_torch.ops.sig_l2 import (
     sig_l2_backward_reference,
@@ -358,6 +394,7 @@ from tf_depth_estimation_torch.tools import probe_int8_dot, probe_int8_dot2, sam
 from tf_depth_estimation_torch.tools.common import inputs as probe_inputs
 from tf_depth_estimation_torch.tools.common import library_product, time_2arg
 from tf_depth_estimation_torch.train import profile_step
+from tf_depth_estimation_torch.train import tf1_import
 from tf_depth_estimation_torch.train.distill import folded_teacher, make_distill_step
 from tf_depth_estimation_torch.train.experiments import (
     depth_only,
@@ -371,6 +408,7 @@ from tf_depth_estimation_torch.train.experiments import (
     optflow_family,
     split_training,
 )
+from tf_depth_estimation_torch.train.loop import MetricLogger, run_training
 from tf_depth_estimation_torch.train.profile_step import demon_batch, plain_sig, plain_smoothness
 from tf_depth_estimation_torch.train.state import create_train_state
 from tf_depth_estimation_torch.train.steps import (
@@ -3467,6 +3505,463 @@ def phase_flow_serving(device, *, hw=FLOW_HW, batch: int = FLOW_BATCH,
     return {"counts": counts, "max_abs_err": float(bf16.max()),
             "mean_abs_err": float(bf16.mean()), "frames_per_s": fps}
 
+# ---- data parallelism, the sharded predictor, the C++ loader, the summaries and
+# the profiler hook, the TF1 importer
+
+# data parallelism at world size 1 on the card: config 2 at the CLI's defaults (C2_*),
+# 5 bf16 steps; the smoothness group 1 + 1 a step as in the single-process step
+DP_STEPS = 5
+# the dry run at world size 1: 3 pairwise steps (phase 1's, phase 3's resumed step and
+# the live step it is held to; one sig group 1 + 1 each, and the loss's 4 warps as
+# plain samplings: the weights keep JAX's default "xla") and 1 distill step (the
+# teacher's fused tail once)
+DRYRUN_PAIRWISE_STEPS, DRYRUN_DISTILL_STEPS, DRYRUN_PLAIN_PER_STEP = 3, 1, 4
+# the f32 DP step at world size 1 against the single-process step from one init: the
+# synced batch norm sums and divides where the plain one takes a mean (the same sums),
+# and the all-reduces over one rank leave the values as they are
+TOL_DP_LOSS = 1e-6
+# the same two steps computed in float64 (the heads, so the loss and its kernels, stay
+# float32): Adam's first moments, (1 - beta1) times the gradients, within this share of
+# each parameter's largest (``parallel/dp.py:moment_gap``). The parameters cannot hold
+# the gradients (Adam's first update moves each by about lr whatever it is), and float32
+# moments cannot be held either: train-mode batch norm over few values in the deepest
+# layers turns float32 rounding into gradients that differ by percents (JAX's own float32
+# and float64 steps too; tests/test_torch_parallel.py shows it at 32x64).
+TOL_DP_MOMENTS = 1e-5
+# the summaries' runs: 5 steps at each CLI's defaults, image summaries every 2
+SUMMARY_STEPS, SUMMARY_FREQ = 5, 2
+# the config-2 trace of run_training(profile_dir=...): steps [1, 3) of 4
+PROFILE_STEPS, PROFILE_RANGE = 4, (1, 3)
+
+
+def _device_kernels(prof, *needles) -> list:
+    """Names of the device kernels of a profiler session whose name holds one of
+    ``needles`` (lower case); the user annotations the profiler mirrors onto the device
+    ("nccl:all_reduce") are not kernels."""
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and ":" not in e.name
+            and any(n in e.name.lower() for n in needles)]
+
+
+def _c2_batch(rng, batch: int, height: int, width: int, device) -> dict:
+    """A seeded config-2 batch on ``device``: images in [0, 1), labels in [1, 2)."""
+    return {"tgt_image": torch.from_numpy(
+                rng.rand(batch, height, width, 3).astype(np.float32)).to(device),
+            "label": torch.from_numpy(
+                rng.uniform(1, 2, (batch, height, width, 1)).astype(np.float32)).to(device)}
+
+
+@contextlib.contextmanager
+def kernel_calls(record: dict):
+    """Within the block each sig group call of the loss pipelines keeps a copy of its
+    arguments in ``record["sig"]``, and each fused tail call of the folded forward its
+    arguments and output in ``record["fused_tail"]``: the inputs a main path gave those
+    kernels, to hold each against its plain version after the run."""
+    saved_sig, saved_tail = pipelines.sig_l2_fused_group, infer_fast.fused_tail
+    copy = lambda t: t.detach().clone()
+
+    def sig(preds, gts, deltas, coefs, *eps):
+        record.setdefault("sig", []).append(
+            ([copy(p) for p in preds], [copy(g) for g in gts], deltas, coefs, eps))
+        return saved_sig(preds, gts, deltas, coefs, *eps)
+
+    def tail(x2, d2, params, **kw):
+        out = saved_tail(x2, d2, params, **kw)
+        record.setdefault("fused_tail", []).append((copy(x2), copy(d2), params, kw,
+                                                    copy(out)))
+        return out
+
+    pipelines.sig_l2_fused_group, infer_fast.fused_tail = sig, tail
+    try:
+        yield
+    finally:
+        pipelines.sig_l2_fused_group, infer_fast.fused_tail = saved_sig, saved_tail
+
+
+def hold_recorded_calls(record: dict, smi: str = "") -> dict:
+    """Each recorded sig group call against ``sig_l2_plain_group`` on its own inputs
+    (total and terms within ``TOL_SIG_FWD``, d pred and d gt of each pair within
+    ``TOL_SIG_BWD`` of its |g| max, as phase 11 holds them) and each recorded fused tail
+    output against ``fused_tail_reference`` (``TOL_TAIL`` of its dtype); raises beyond."""
+    worst = {"sig_fwd": 0.0, "sig_bwd": 0.0, "fused_tail": 0.0}
+    for preds, gts, deltas, coefs, eps in record.get("sig", []):
+        runs = []
+        for fn in (sig_l2_fused_group, sig_l2_plain_group):
+            ps = [p.clone().requires_grad_(True) for p in preds]
+            gs = [g.clone().requires_grad_(True) for g in gts]
+            total, per_map = fn(ps, gs, deltas, coefs, *eps)
+            runs.append((total.detach(), per_map.detach(),
+                         torch.autograd.grad(total, ps + gs)))
+        (total, terms, grads), (r_total, r_terms, r_grads) = runs
+        fwd = max(_rel(total.item(), r_total.item()), _each_rel(terms, r_terms))
+        bwd = max(_max_rel(g, r) for g, r in zip(grads, r_grads))
+        print(f"kernel sig_l2 group on the dry run's inputs ({len(preds)} pairs, "
+              f"{[tuple(p.shape) for p in preds]}, deltas {list(deltas)}): total and terms "
+              f"rel err {fwd:.3e} vs plain (rtol {TOL_SIG_FWD:.0e}); gradients within "
+              f"{bwd:.3e} x their |g| max (tolerance {TOL_SIG_BWD:.0e}) [{smi}]")
+        if fwd > TOL_SIG_FWD or bwd > TOL_SIG_BWD:
+            raise AssertionError("sig group on the dry run's inputs: beyond its tolerances")
+        worst["sig_fwd"] = max(worst["sig_fwd"], fwd)
+        worst["sig_bwd"] = max(worst["sig_bwd"], bwd)
+    for x2, d2, params, kw, out in record.get("fused_tail", []):
+        ref = fused_tail_reference(x2, d2, params, **kw)
+        err, mean = (out - ref).abs().max().item(), (out - ref).abs().mean().item()
+        tol_max, tol_mean = TOL_TAIL[x2.dtype]
+        print(f"kernel fused_tail {str(x2.dtype)[6:]} on the dry run's inputs "
+              f"{tuple(x2.shape)}: abs err max {err:.3e}, mean {mean:.3e} vs "
+              f"fused_tail_reference, tolerance max {tol_max:.0e}, mean {tol_mean:.0e} "
+              f"[{smi}]")
+        if not bool(torch.isfinite(out).all()) or err > tol_max or mean > tol_mean:
+            raise AssertionError("fused_tail on the dry run's inputs: beyond its tolerances")
+        worst["fused_tail"] = max(worst["fused_tail"], err)
+    return worst
+
+
+def _c2_state(device, dtype: torch.dtype):
+    model = DispNet(DispNetVariant.depth4(), generator=torch.Generator().manual_seed(SEED),
+                    dtype=dtype).to(device)
+    return create_train_state(model)
+
+
+def phase_dp(device, root: str, *, height: int = C2_HEIGHT, width: int = C2_WIDTH,
+             batch: int = C2_BATCH, steps: int = DP_STEPS, smi: str = "") -> dict:
+    """Data parallelism on one device: the default process group at world size 1 (NCCL on
+    the card, gloo on the CPU) through a ``FileStore`` under ``root``. Then, three main
+    paths, each between count resets: ``steps`` bf16 data-parallel config-2 steps (the
+    counts read after each step: 1 + 1 smoothness launches; under the profiler, NCCL's
+    all-reduce kernels counted a step); one f32 data-parallel step against the
+    single-process step from one init and batch (loss rel ``TOL_DP_LOSS``, params within
+    2 lr) and the same pair computed in float64 (Adam's first moments within
+    ``TOL_DP_MOMENTS``); and the dry run's three phases (``parallel/dryrun.py:run_phases``),
+    whose sig group and fused tail calls are then held against their plain versions on
+    the inputs the run gave them."""
+    cuda = torch.device(device).type == "cuda"
+    store = os.path.join(root, "group")
+    os.makedirs(store, exist_ok=True)
+    group = init_process_group(store, 0, 1, "nccl" if cuda else "gloo")
+    try:
+        w = dataclasses.replace(LossWeights.depth_only(), height=height, width=width)
+        rng = np.random.RandomState(SEED + 40)
+        state = _c2_state(device, torch.bfloat16)
+        dp_step = make_dp_step(make_depth_only_step(w), group)
+        per_step, totals = [], []
+        activities = [torch.profiler.ProfilerActivity.CPU] + (
+            [torch.profiler.ProfilerActivity.CUDA] if cuda else [])
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(steps):
+                b = _c2_batch(rng, batch, height, width, device)
+                reset_counts()
+                state, metrics = dp_step(state, b)
+                per_step.append(read_counts())
+                totals.append(float(metrics["total"]))
+        seconds = time.perf_counter() - t0
+        nccl = _device_kernels(prof, "nccl", "onerank")
+        if not all(np.isfinite(totals)) or state.step != steps:
+            raise AssertionError(f"DP config 2: step {state.step}, totals {totals}")
+        _check_per_step("DP config 2", per_step,
+                        {"smoothness_fwd": 1, "smoothness_bwd": 1} if cuda else {})
+        if cuda and len(nccl) < steps:
+            raise AssertionError(f"DP config 2: {len(nccl)} NCCL kernels in {steps} steps")
+        print(f"DP config 2: {steps} bf16 steps ({height}x{width}, global batch {batch}, "
+              f"world size 1, {dist.get_backend(group)}) in {seconds:.2f} s host clock "
+              f"(profiled), totals {', '.join(f'{t:.4f}' for t in totals)}; smoothness 1 + 1 "
+              f"a step; NCCL kernels {len(nccl)} ({sorted(set(nccl))[:2]}) [{smi}]")
+
+        b = _c2_batch(rng, batch, height, width, device)
+        runs = {}
+        for dt in (torch.float32, torch.float64):
+            for way, step in (("dp", dp_step), ("single", make_depth_only_step(w))):
+                runs[dt, way] = step(_c2_state(device, dt), b)
+        (dp32, m_dp), (single32, m_single) = runs[torch.float32, "dp"], runs[torch.float32,
+                                                                              "single"]
+        rel = _rel(float(m_dp["total"]), float(m_single["total"]))
+        worst = max((p - q).abs().max().item() for p, q in zip(dp32.model.parameters(),
+                                                              single32.model.parameters()))
+        lr = dp32.optimizer.param_groups[0]["lr"]
+        gap32 = moment_gap(dp32, single32)
+        gap = moment_gap(runs[torch.float64, "dp"][0], runs[torch.float64, "single"][0])
+        del runs, dp32, single32
+        print(f"DP config 2 f32 step vs the single-process step: loss "
+              f"{float(m_dp['total']):.6f} vs {float(m_single['total']):.6f} (rel {rel:.2e}, "
+              f"limit {TOL_DP_LOSS:.0e}), "
+              f"params {worst:.3e} apart at most (limit 2 lr = {2 * lr:.1e}), first moments "
+              f"{gap32:.3e} of their largest apart (not held in float32); in float64 the "
+              f"first moments {gap:.3e} apart (limit {TOL_DP_MOMENTS:.0e}) [{smi}]")
+        if rel > TOL_DP_LOSS or worst > 2 * lr * (1 + 1e-4) or gap > TOL_DP_MOMENTS:
+            raise AssertionError("the DP step differs from the single-process step")
+
+        reset_counts()  # a main path: the dry run
+        t0 = time.perf_counter()
+        record = {}
+        with kernel_calls(record):
+            dry = dryrun.run_phases(group, device, os.path.join(root, "dryrun"))
+        dry_counts = read_counts()
+        want = {k: 0 for k in dry_counts}
+        want["plain_samples"] = DRYRUN_PLAIN_PER_STEP * DRYRUN_PAIRWISE_STEPS
+        if cuda:
+            want.update(sig_fwd=DRYRUN_PAIRWISE_STEPS, sig_bwd=DRYRUN_PAIRWISE_STEPS,
+                        fused_tail=DRYRUN_DISTILL_STEPS)
+        print(f"dryrun_multichip at world size 1: {dry} in {time.perf_counter() - t0:.2f} s; "
+              f"launches {dry_counts} [{smi}]")
+        if dry_counts != want:
+            raise AssertionError(f"the dry run launched {dry_counts}, not {want}")
+        calls = {k: len(v) for k, v in record.items()}
+        if calls != {"sig": DRYRUN_PAIRWISE_STEPS, "fused_tail": DRYRUN_DISTILL_STEPS}:
+            raise AssertionError(f"the dry run called the wrappers {calls} times")
+        dry_errs = hold_recorded_calls(record, smi)
+    finally:
+        dist.destroy_process_group()
+    return {"per_step": per_step, "nccl_kernels": len(nccl), "loss_rel": rel,
+            "param_diff": worst, "moment_gap": gap, "moment_gap_f32": gap32, "dryrun": dry,
+            "dryrun_counts": dry_counts, "dryrun_errs": dry_errs}
+
+
+def phase_sharded_predictor(variables: dict, device, height: int = HEIGHT,
+                            width: int = WIDTH, batch: int = 8, smi: str = "") -> dict:
+    """``DepthPredictor(num_devices=1)`` answers 12 frames (a batch and a padded tail) as
+    the default predictor does, bit for bit, and ``num_devices`` above the machine's
+    device count raises."""
+    frames = _frames(12, height, width, seed=SEED + 41)
+    kw = dict(height=height, width=width, batch_size=batch, device=device)
+    got = DepthPredictor(variables["params"], variables["batch_stats"], num_devices=1,
+                         **kw).predict_array(frames)
+    want = DepthPredictor(variables["params"], variables["batch_stats"],
+                          **kw).predict_array(frames)
+    if not np.array_equal(got, want):
+        raise AssertionError("DepthPredictor(num_devices=1) differs from the default")
+    n = torch.cuda.device_count() + 1
+    try:
+        DepthPredictor(variables["params"], variables["batch_stats"], height=height,
+                       width=width, batch_size=batch, device="cuda", num_devices=n)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"DepthPredictor(num_devices={n}) did not raise")
+    print(f"sharded predictor: num_devices=1 answers {len(frames)} frames as the default "
+          f"(bit-equal); num_devices={n} raises: {refused} [{smi}]")
+    return {"refused": refused}
+
+
+def phase_native_loader(device, dataset: str, *, height: int = C2_HEIGHT,
+                        width: int = C2_WIDTH, batch: int = C2_BATCH,
+                        steps: int = DP_STEPS, dtype: str = "bfloat16",
+                        smi: str = "") -> dict:
+    """The C++ loader built from ``native/fastloader.cc`` with g++ (its seconds printed),
+    its samples (one thread, in order) within ``tests/test_torch_native_loader.py``'s
+    limits of the NumPy dataset, then a main path: ``depth_only --native_loader`` for
+    ``steps`` steps, the counts set to 0 before and read after (1 + 1 smoothness a
+    step)."""
+    built = native.build()
+    print(f"native loader: built {os.path.relpath(built['path'], ROOT)} with g++ in "
+          f"{built['seconds']:.2f} s wall (0: cached)")
+    ds = PairDepthDataset(dataset, split="train", image_height=height, image_width=width,
+                          resized_height=height, resized_width=width)
+    samples = list(native.NativePairSampler(ds, num_threads=1, shuffle=False))
+    if len(samples) != len(ds):
+        raise AssertionError(f"native loader: {len(samples)} of {len(ds)} samples")
+    worst = {"image": 0.0, "label": 0.0, "intrinsics": 0.0}
+    for i, s in enumerate(samples):
+        ref = ds[i]
+        worst["image"] = max(worst["image"], *(float(np.abs(s[k] - ref[k]).max())
+                                               for k in ("tgt_image", "src_image")))
+        worst["label"] = max(worst["label"], float(np.abs(s["label"] - ref["label"]).max()))
+        worst["intrinsics"] = max(worst["intrinsics"], float(np.abs(
+            s["intrinsics"] - ref["intrinsics"]).max() / np.abs(ref["intrinsics"]).max()))
+    print(f"native loader: {len(samples)} samples at {height}x{width} vs the NumPy dataset: "
+          f"image abs err max {worst['image']:.3f} (limit 2.5), label {worst['label']:.2e} "
+          f"(1e-5), intrinsics rel {worst['intrinsics']:.1e} (1e-6)")
+    if worst["image"] > 2.5 or worst["label"] > 1e-5 or worst["intrinsics"] > 1e-6:
+        raise AssertionError("native loader samples beyond the NumPy dataset's limits")
+    ckpt = os.path.join(os.path.dirname(dataset), "checkpoints_native")
+    reset_counts()  # a main path: depth_only --native_loader
+    t0 = time.perf_counter()
+    state, last = depth_only.main([
+        "--dataset_dir", dataset, "--checkpoint_dir", ckpt, "--batch_size", str(batch),
+        "--max_steps", str(steps), "--summary_freq", "1", "--save_latest_freq", str(steps),
+        "--validation_check", "0", "--image_height", str(height), "--image_width",
+        str(width), "--dtype", dtype, "--device", str(device), "--seed", str(SEED),
+        "--native_loader"])
+    counts = read_counts()
+    seconds = time.perf_counter() - t0
+    want = {k: 0 for k in counts}
+    if torch.device(device).type == "cuda":
+        want.update(smoothness_fwd=steps, smoothness_bwd=steps)
+    _records(ckpt, ("total", "depth", "smooth"))
+    print(f"depth_only --native_loader: {state.step} {dtype} steps ({height}x{width}, batch "
+          f"{batch}) in {seconds:.1f} s host clock, last total {last['total']:.4f}; "
+          f"launches {counts} [{smi}]")
+    if state.step != steps or counts != want:
+        raise AssertionError(f"depth_only --native_loader: step {state.step}, launches "
+                             f"{counts}, not {want}")
+    return {"build_seconds": built["seconds"], "counts": counts, **worst}
+
+
+def _event_tags(directory: str):
+    """{"scalars", "images", "histograms"} tags of the event files under ``directory``,
+    read by tensorboard's own reader (no TensorFlow needed)."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(directory)
+    acc.Reload()
+    tags = acc.Tags()
+    return {k: set(tags.get(k, ())) for k in ("scalars", "images", "histograms")}
+
+
+def _split_summary_tags(comps) -> dict:
+    per_scale = ("left_image", "right_image", "pred_depth_left", "pred_depth_right",
+                 "projected_image_left", "project_error_left")
+    return {"scalars": {f"train/{k}" for k in (*comps, "steps_per_sec", "frames_per_sec")},
+            "images": {f"scale{s}_{n}" for s in range(2) for n in per_scale}
+            | {"val_depth", "val_depth_inv", "val_image"},
+            "histograms": {"scale0_pred_depth_single_left", "scale0_pred_depth_single_right",
+                           "image_value_range", "scale_depth"}}
+
+
+def _depth_summary_tags(comps) -> dict:
+    return {"scalars": {f"train/{k}" for k in (*comps, "steps_per_sec", "frames_per_sec")},
+            "images": {"target_image"} | {f"scale{s}_pred_depth" for s in range(4)},
+            "histograms": {"image_value_range", "scale0_pred_depth", "scale_depth"}}
+
+
+def phase_summaries(device, root: str, dataset: str, *, steps: int = SUMMARY_STEPS,
+                    freq: int = SUMMARY_FREQ, st_hw=(ST_HEIGHT, ST_WIDTH),
+                    st_batch: int = ST_BATCH, c2_hw=(C2_HEIGHT, C2_WIDTH),
+                    c2_batch: int = C2_BATCH, dtype: str = "bfloat16",
+                    smi: str = "") -> dict:
+    """Two main paths, each between count resets: split_training's phase 1 with
+    ``--rich_summaries --tensorboard`` (``train_pair``, synthetic DeMoN batches; sig 1 + 1
+    a step) and ``depth_only --rich_summaries`` (smoothness 1 + 1 a step), ``steps``
+    steps each at the CLIs' defaults with ``--image_summary_freq freq``: where the
+    tensorboard package is installed, event files with the JAX package's scalar, image and
+    histogram tags, the images at the summary steps; where it is not, the "tensorboard
+    writer unavailable" line. Then the profiler hook: ``run_training(profile_dir=...)`` on
+    config 2 records steps ``PROFILE_RANGE`` as one trace, which on the card names the
+    smoothness kernels."""
+    import importlib.util
+    import io
+
+    cuda = torch.device(device).type == "cuda"
+    has_tb = importlib.util.find_spec("tensorboard") is not None
+    common = ["--summary_freq", "1", "--save_latest_freq", str(steps), "--dtype", dtype,
+              "--device", str(device), "--seed", str(SEED), "--max_steps", str(steps),
+              "--image_summary_freq", str(freq)]
+    out, logs = {}, {}
+    split_dir = os.path.join(root, "split_summaries")
+    args = split_training.parse_args(common + [
+        "--checkpoint_dir", split_dir, "--image_height", str(st_hw[0]), "--image_width",
+        str(st_hw[1]), "--batch_size", str(st_batch), "--rich_summaries", "--tensorboard"])
+    w = split_training.loss_weights(args)
+    log = io.StringIO()
+    reset_counts()  # a main path: split_training phase 1 with the summaries
+    with contextlib.redirect_stdout(log):
+        split_training.train_pair(args, w, split_training.pair_state(args),
+                                  demon_batches(st_batch, *st_hw, device))
+    out["split"] = read_counts()
+    logs["split"] = log.getvalue()
+    c2_dir = os.path.join(root, "depth_only_summaries")
+    log = io.StringIO()
+    reset_counts()  # a main path: depth_only with the summaries
+    with contextlib.redirect_stdout(log):
+        depth_only.main(common + ["--dataset_dir", dataset, "--checkpoint_dir", c2_dir,
+                                  "--image_height", str(c2_hw[0]), "--image_width",
+                                  str(c2_hw[1]), "--batch_size", str(c2_batch),
+                                  "--validation_check", "0", "--rich_summaries"])
+    out["depth_only"] = read_counts()
+    logs["depth_only"] = log.getvalue()
+    kernel = {"split": ("sig_fwd", "sig_bwd"), "depth_only": ("smoothness_fwd",
+                                                               "smoothness_bwd")}
+    expected = {"split": _split_summary_tags(("total", "depth", "cam", "consist", "sig",
+                                              "exp", "pixel")),
+                "depth_only": _depth_summary_tags(("total", "depth", "smooth"))}
+    for name, directory in (("split", split_dir), ("depth_only", c2_dir)):
+        # the pairwise loss's and summary's warps keep JAX's "xla": plain samplings
+        want = {k: 0 for k in out[name] if k != "plain_samples"}
+        if cuda:
+            want.update({k: steps for k in kernel[name]})
+        if {k: out[name][k] for k in want} != want:
+            raise AssertionError(f"{name} with summaries launched {out[name]}, not {want}")
+        if has_tb:
+            tags = _event_tags(os.path.join(directory, "sum"))
+            missing = {k: expected[name][k] - tags[k] for k in tags}
+            if any(missing.values()) or tags["images"] != expected[name]["images"]:
+                raise AssertionError(f"{name}: event tags {tags}, missing {missing}")
+            print(f"{name} --rich_summaries: {steps} steps, launches {out[name]}; event "
+                  f"files with {len(tags['scalars'])} scalar, {len(tags['images'])} image "
+                  f"and {len(tags['histograms'])} histogram tags (JAX's) [{smi}]")
+        else:
+            if "tensorboard writer unavailable" not in logs[name]:
+                raise AssertionError(f"{name}: no tensorboard and no 'unavailable' line")
+            print(f"{name} --rich_summaries: {steps} steps, launches {out[name]}; no "
+                  f"tensorboard package: 'tensorboard writer unavailable', no event files "
+                  f"[{smi}]")
+    out["tensorboard"] = has_tb
+
+    w = dataclasses.replace(LossWeights.depth_only(), height=c2_hw[0], width=c2_hw[1])
+    rng = np.random.RandomState(SEED + 42)
+    batches = iter([_c2_batch(rng, c2_batch, *c2_hw, device) for _ in range(PROFILE_STEPS)])
+    prof_dir = os.path.join(root, "profile")
+    logger = MetricLogger(os.path.join(root, "profile_log"), quiet=True)
+    run_training(state=_c2_state(device, torch.bfloat16), train_step=make_depth_only_step(w),
+                 batches=batches, max_steps=PROFILE_STEPS, logger=logger, summary_freq=0,
+                 profile_dir=prof_dir, profile_steps=PROFILE_RANGE)
+    logger.close()
+    traces = sorted(os.listdir(prof_dir))
+    with open(os.path.join(prof_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    smooth = [n for n in kernels if "smooth" in n.lower()]
+    print(f"run_training(profile_dir=...): {traces}, {len(events)} events, {len(kernels)} "
+          f"kernels, of them {len(smooth)} smoothness ({sorted(set(smooth))}) [{smi}]")
+    n_steps = PROFILE_RANGE[1] - PROFILE_RANGE[0]
+    if len(traces) != 1 or (cuda and len(smooth) < 2 * n_steps):
+        raise AssertionError(f"profile trace {traces}: {len(smooth)} smoothness kernels in "
+                             f"{n_steps} steps")
+    out["trace_kernels"], out["trace_smoothness"] = len(kernels), len(smooth)
+    return out
+
+
+def phase_tf1_import(device, height: int = HEIGHT, width: int = WIDTH, batch: int = 8,
+                     smi: str = "") -> dict:
+    """Seeded arrays under the reference's slim names (``depth_net/...``, He-scaled
+    kernels, positive variances) through ``import_tf1_variables`` into depth4 DispNet's
+    tree, served by a bf16 ``DepthPredictor`` (the folded forward; one ``fused_tail``
+    launch for a batch) on ``batch`` frames, a main path between count resets; the
+    answer bit-equal to serving the seeded tree directly."""
+    rng = np.random.RandomState(SEED + 43)
+    direct = []
+    for path, leaf in tf1_import._leaves(tf1_import.init_variables("dispnet")):
+        shape = np.shape(leaf)
+        value = rng.randn(*shape).astype(np.float32)
+        if path[-1] == "var":
+            value = np.abs(value) + 0.1
+        elif path[-1] == "kernel":
+            value *= np.sqrt(2.0 / np.prod(shape[:-1]))
+        direct.append((path, value))
+    tf1_vars = {tf1_import.tf1_name_for(p, "dispnet", "depth_net"): v for p, v in direct}
+    tree, paths = tf1_import.import_tf1_variables(
+        tf1_vars, tf1_import.init_variables("dispnet"), "dispnet", "depth_net")
+    direct = tf1_import._unflatten(direct)
+    frames = _frames(batch, height, width, seed=SEED + 44)
+    kw = dict(height=height, width=width, batch_size=batch, device=device)
+    reset_counts()  # a main path: serving the imported weights
+    got = DepthPredictor(tree["params"], tree["batch_stats"], **kw).predict_array(frames)
+    counts = read_counts()
+    want = DepthPredictor(direct["params"], direct["batch_stats"], **kw).predict_array(frames)
+    expect = {k: 0 for k in counts}
+    if torch.device(device).type == "cuda":
+        expect["fused_tail"] = 1
+    print(f"TF1 import: {len(tf1_vars)} slim variables -> {len(paths)} leaves of depth4 "
+          f"DispNet; served {batch} frames at {height}x{width} (bf16, folded): "
+          f"{'bit-equal' if np.array_equal(got, want) else 'DIFFERENT'} to serving the "
+          f"seeded tree directly, finite {bool(np.isfinite(got).all())}; launches {counts} "
+          f"[{smi}]")
+    if not np.array_equal(got, want) or not np.isfinite(got).all() or counts != expect:
+        raise AssertionError(f"TF1-imported serving: launches {counts}, not {expect}, or "
+                             f"not the direct answer")
+    return {"counts": counts, "leaves": len(paths)}
+
+
 def reset_counts() -> None:
     fused_tail.launches = bilinear_sample.launches = bilinear_sample.backward_launches = 0
     smoothness_fused.launches = smoothness_fused.backward_launches = 0
@@ -3748,6 +4243,20 @@ def main() -> None:
     rf_step_ms = {**{k: rf_times[k]["ms"] for k in ("pallas", "xla")},
                   "median_diff": rf_times["median_diff"]}
 
+    with tempfile.TemporaryDirectory() as tmp:
+        dp = phase_dp("cuda", tmp, smi=info["smi"])   # three main paths, counts inside
+        phase_sharded_predictor(variables, "cuda", smi=info["smi"])
+        pairs = write_dataset(tmp)   # 240x720 JPEG pairs, 10 in the train split
+        if native.available():   # a main path, counts inside
+            nat = phase_native_loader("cuda", pairs, smi=info["smi"])
+        else:
+            nat = {"counts": {"smoothness_fwd": None, "smoothness_bwd": None}}
+            why = " / ".join(native.build_error().splitlines()[:3])
+            print(f"native loader: left out, it cannot build here: {why}")
+        summ = phase_summaries("cuda", tmp, pairs, smi=info["smi"])   # two main paths
+    tf1 = phase_tf1_import("cuda", smi=info["smi"])   # a main path, counts inside
+    stamp("data parallelism, the C++ loader, the summaries and the TF1 importer")
+
     kernels = [{
         "name": "fused_tail", "route": "cuda",
         "source": "tf_depth_estimation_torch/csrc/fused_tail.cu",
@@ -3763,6 +4272,10 @@ def main() -> None:
         "distill_launches": dist["counts"]["fused_tail"],
         "checkpoint_serving_launches": c2_served["counts"]["fused_tail"],
         "distill_step_ms": dtimes["step"], "distill_teacher_ms": dtimes["teacher"],
+        # the teacher of the dry run's data-parallel distill step (world size 1, NCCL), and
+        # a batch of 8 served from TF1-imported weights
+        "dryrun_distill_launches": dp["dryrun_counts"]["fused_tail"],
+        "tf1_import_serving_launches": tf1["counts"]["fused_tail"],
     }, {
         # forward and backward of a config-4 step's 12 warps (B=10, 224x480 down to 28x60;
         # dcoords on the 8 that need them) in one group call; launches: forward + backward
@@ -3846,6 +4359,15 @@ def main() -> None:
         "refine_launches": rf_counts["smoothness_fwd"] + rf_counts["smoothness_bwd"],
         "refine_step_ms": rf_step_ms,
         "refine_device_ms": rf_times[refine.SAMPLER]["smooth_ms"],
+        # forward + backward in the data-parallel config-2 run (5 steps, world size 1,
+        # NCCL), in depth_only --native_loader (5 steps; None where the loader cannot
+        # build) and depth_only --rich_summaries (5 steps)
+        "dp_launches": sum(n["smoothness_fwd"] + n["smoothness_bwd"] for n in dp["per_step"]),
+        "native_loader_launches": (None if nat["counts"]["smoothness_fwd"] is None else
+                                   nat["counts"]["smoothness_fwd"]
+                                   + nat["counts"]["smoothness_bwd"]),
+        "rich_summaries_launches": (summ["depth_only"]["smoothness_fwd"]
+                                    + summ["depth_only"]["smoothness_bwd"]),
     }, {
         # forward and backward of phase 2's group of a step (4 pairs, B=1, 192x256 down to
         # 24x32, delta 2); launches: forward + backward in both phases' runs;
@@ -3864,6 +4386,10 @@ def main() -> None:
         "library_ms": None,  # no single PyTorch call computes the same function
         # forward + backward in the lr_gt run (5 steps; the 5-delta term at 192x256, B=16)
         "lr_gt_launches": demon["lr_gt"]["sig_fwd"] + demon["lr_gt"]["sig_bwd"],
+        # forward + backward in the dry run's 3 data-parallel pairwise steps (world size 1,
+        # NCCL; B=2, 32x64) and split_training phase 1 --rich_summaries (5 steps)
+        "dryrun_launches": dp["dryrun_counts"]["sig_fwd"] + dp["dryrun_counts"]["sig_bwd"],
+        "rich_summaries_launches": summ["split"]["sig_fwd"] + summ["split"]["sig_bwd"],
     }, {
         # forward and backward (dcoords) of a config-3 step's 4 warps (B=16, 192x256 down to
         # 24x32) in one group call, on the kernels of csrc/bilinear_sample.cu; launches:

@@ -655,18 +655,15 @@ def _jax_cli_namespace(main, argv) -> dict:
 
 @pytest.mark.parametrize("name", ["depth_then_cam", "eval_harness"])
 def test_cli_defaults_match_jax(name):
-    """Every flag the JAX CLI parses, with its default, except the flags the port
-    refuses; and ``--device cuda``."""
+    """Every flag the JAX CLI parses, with its default, and ``--device cuda``."""
     import importlib
 
-    from tf_depth_estimation_torch.train.experiments.common import NOT_PORTED
 
     jmod = importlib.import_module(f"tf_depth_estimation_tpu.train.experiments.{name}")
     port = {"depth_then_cam": depth_then_cam, "eval_harness": eval_harness}[name]
     ref, args = _jax_cli_namespace(jmod.main, []), vars(port.parse_args([]))
     for k, v in ref.items():
-        if k not in NOT_PORTED:
-            assert args[k] == v, k
+        assert args[k] == v, k
     assert args["device"] == "cuda"
 
 

@@ -10,7 +10,10 @@ depth serving from a checkpoint directory and through the module forward, and th
 DeMoN-stream families: config 5 with its checkpoint served, and both L/R modes, and the
 colon-pair families: optflow_family's five modes and dim11, with the sfm checkpoint
 served through the module forward; and refinement against a COLMAP model through its CLI
-and flow-augmented serving (in the pair-serving child).
+and flow-augmented serving (in the pair-serving child); and data parallelism (the dry run
+over one gloo rank, the smoke's data-parallel phase), the sharded predictor, the C++
+loader through ``--native_loader``, the rich summaries with ``--tensorboard`` and the
+profiler hook, and serving TF1-imported weights.
 
 The children run beside the other pytest workers, so each keeps PyTorch to two threads:
 one child with every path and PyTorch's default of a thread per core took ~4x its time
@@ -180,6 +183,30 @@ for m, run in lr.items():
     assert n["plain_samples"] == 16 and not any(v for k, v in n.items()
                                                 if k != "plain_samples"), (m, n)
 """,
+    # data parallelism (the dry run over 1 gloo rank in its own process, and the smoke's
+    # phase in-process), the sharded predictor, the C++ loader (--native_loader), the rich
+    # summaries with --tensorboard and the profiler hook, and TF1-imported serving; 3
+    # summary steps (the sig ramp is 0/0 below 3, as in JAX)
+    "parallel_and_aux": r"""
+from tf_depth_estimation_torch.parallel import dryrun
+from tf_depth_estimation_torch.utils.npz import load_variables_npz
+out = dryrun.dryrun_multichip(1)
+assert out["world_size"] == 1 and all(np.isfinite(out[k]) for k in (
+    "pairwise_total", "distill_total", "resumed_total")), out
+variables, _ = load_variables_npz(chip_smoke.TEACHER)
+with tempfile.TemporaryDirectory() as tmp:
+    dp = chip_smoke.phase_dp("cpu", tmp, height=32, width=64, batch=2, steps=2)
+    chip_smoke.phase_sharded_predictor(variables, "cpu", height=64, width=96, batch=4)
+    data = chip_smoke.write_dataset(tmp, batch=2, read_hw=(48, 96))
+    nat = chip_smoke.phase_native_loader("cpu", data, height=48, width=96, batch=2,
+                                         steps=2, dtype="float32")
+    summ = chip_smoke.phase_summaries("cpu", tmp, data, steps=3, st_hw=(32, 64),
+                                      st_batch=1, c2_hw=(48, 96), c2_batch=2,
+                                      dtype="float32")
+tf1 = chip_smoke.phase_tf1_import("cpu", height=64, width=96, batch=2)
+assert dp["loss_rel"] == 0.0 and dp["dryrun_counts"]["sig_fwd"] == 0, dp
+assert summ["tensorboard"] and not any(tf1["counts"].values()), (summ, tf1)
+""",
     # on the CPU the wrappers run their plain versions; the probes have no CPU path
     "dot_probes": r"""
 from tf_depth_estimation_torch.tools import (dot_variants, probe_int8_dot, probe_int8_dot2,
@@ -255,7 +282,15 @@ def test_every_port_module_is_imported_by_the_child():
             "tf_depth_estimation_torch.infer.refine",
             "tf_depth_estimation_torch.infer.refine_cli",
             "tf_depth_estimation_torch.models.upconv",
-            "tf_depth_estimation_torch.data.manifest"} <= names
+            "tf_depth_estimation_torch.data.manifest",
+            "tf_depth_estimation_torch.parallel.dp",
+            "tf_depth_estimation_torch.parallel.dryrun",
+            "tf_depth_estimation_torch.data.native",
+            "tf_depth_estimation_torch.train.summaries",
+            "tf_depth_estimation_torch.train.tf1_import",
+            "tf_depth_estimation_torch.train.config",
+            "tf_depth_estimation_torch.utils.constants",
+            "tf_depth_estimation_torch.utils.viz"} <= names
 
 
 def test_no_port_file_names_jax_in_an_import():

@@ -318,9 +318,7 @@ def test_cli_trains_both_modes(demon_dir, tmp_path, mode):
 
 
 def test_cli_defaults_match_jax():
-    """Every flag the JAX CLI parses, with its default, except the flags the port refuses;
-    and ``--device cuda``."""
-    from tf_depth_estimation_torch.train.experiments.common import NOT_PORTED
+    """Every flag the JAX CLI parses, with its default, and ``--device cuda``."""
     from tf_depth_estimation_tpu.train.experiments import depth_then_cam_lr as jcli
 
     captured = {}
@@ -338,8 +336,7 @@ def test_cli_defaults_match_jax():
         argparse.ArgumentParser.parse_args = real
     ref, args = vars(captured["ns"]), vars(depth_then_cam_lr.parse_args([]))
     for k, v in ref.items():
-        if k not in NOT_PORTED:
-            assert args[k] == v, k
+        assert args[k] == v, k
     assert args["device"] == "cuda" and not args["gt_pose"] and not args["demon_v1"]
 
 

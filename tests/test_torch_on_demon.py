@@ -208,8 +208,7 @@ def test_cli_trains_config_5_with_optimize_depth(demon_dir, tmp_path):
 
 def test_cli_defaults_match_jax():
     """Every flag the JAX CLI parses, with its default (batch 16, 200,000 steps, a save
-    every 100, 192x256), except the flags the port refuses; and ``--device cuda``."""
-    from tf_depth_estimation_torch.train.experiments.common import NOT_PORTED
+    every 100, 192x256); and ``--device cuda``."""
     from tf_depth_estimation_tpu.train.experiments import on_demon as jcli
 
     captured = {}
@@ -227,8 +226,7 @@ def test_cli_defaults_match_jax():
         argparse.ArgumentParser.parse_args = real
     ref, args = vars(captured["ns"]), vars(on_demon.parse_args([]))
     for k, v in ref.items():
-        if k not in NOT_PORTED:
-            assert args[k] == v, k
+        assert args[k] == v, k
     assert (args["batch_size"], args["max_steps"], args["save_latest_freq"]) == \
         (16, 200000, 100)
     assert args["device"] == "cuda" and not args["optimize_depth"]

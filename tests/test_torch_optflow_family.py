@@ -405,11 +405,9 @@ def test_cli_trains_every_entry_point(colon_dir, dim11_dataset, tmp_path, mode):
 
 @pytest.mark.parametrize("cli", ["optflow_family", "dim11"])
 def test_cli_defaults_match_jax(cli):
-    """Every flag the JAX CLI parses, with its default, except the flags the port refuses;
-    and ``--device cuda``."""
+    """Every flag the JAX CLI parses, with its default, and ``--device cuda``."""
     import importlib
 
-    from tf_depth_estimation_torch.train.experiments.common import NOT_PORTED
 
     jcli = importlib.import_module(f"tf_depth_estimation_tpu.train.experiments.{cli}")
     port = {"optflow_family": optflow_family, "dim11": dim11}[cli]
@@ -429,8 +427,7 @@ def test_cli_defaults_match_jax(cli):
         argparse.ArgumentParser.parse_args = real
     ref, args = vars(captured["ns"]), vars(port.parse_args(argv))
     for k, v in ref.items():
-        if k not in NOT_PORTED:
-            assert args[k] == v, k
+        assert args[k] == v, k
     assert args["device"] == "cuda"
 
 

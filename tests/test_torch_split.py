@@ -443,8 +443,11 @@ def test_cli_trains_both_phases_and_resumes_phase_2(demon_dir, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--rich_summaries"])
 def test_cli_refuses_flags_it_lacks(flag, tmp_path):
-    with pytest.raises(SystemExit):
-        split_training.parse_args(["--dataset_dir", str(tmp_path), flag])
+    """``--rich_summaries``, refused before it was ported, parses as in JAX: phase 1 then
+    writes the pairwise summaries every ``--image_summary_freq`` (500) steps
+    (``tests/test_torch_summaries.py`` holds them to JAX's)."""
+    args = split_training.parse_args(["--dataset_dir", str(tmp_path), flag])
+    assert getattr(args, flag[2:]) is True and args.image_summary_freq == 500
 
 
 def test_cli_reads_demon_v1_through_demon_loader(tmp_path):

@@ -184,8 +184,16 @@ def test_cli_resumes_with_continue_train(cli_run, dataset):
 
 @pytest.mark.parametrize("flag", ["--native_loader", "--tensorboard", "--rich_summaries"])
 def test_cli_refuses_flags_of_later_slices(flag, tmp_path):
-    with pytest.raises(SystemExit):
-        optflow_combine.main(["--dataset_dir", str(tmp_path), flag, "--device", "cpu"])
+    """The three flags earlier slices refused are ported: the parser takes each as the
+    JAX CLI does (no refusal), and the run goes on to read the dataset (an empty
+    directory here, so the reader raises, not the parser)."""
+    from tf_depth_estimation_tpu.train.experiments.common import base_parser
+
+    argv = ["--dataset_dir", str(tmp_path), flag, "--device", "cpu"]
+    assert getattr(optflow_combine.parse_args(argv), flag[2:]) is True
+    assert getattr(base_parser("jax").parse_args(argv[:3]), flag[2:]) is True
+    with pytest.raises(FileNotFoundError):
+        optflow_combine.main(argv)
 
 
 def test_cli_accepts_demon_v1_unread(tmp_path):

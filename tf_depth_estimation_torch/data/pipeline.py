@@ -22,18 +22,27 @@ import torch
 
 class BatchLoader:
     """Shuffled, epoch-repeating batch iterator over an indexable dataset of dicts of
-    fixed-shape numpy arrays; with more than one worker the batches' order may vary."""
+    fixed-shape numpy arrays; with more than one worker the batches' order may vary.
+
+    Under data parallelism host ``host_index`` of ``host_count`` shuffles with
+    ``RandomState(seed + host_index)`` and reads the slice ``idx[host_index::host_count]``
+    of each epoch's order, as the JAX package's hosts do
+    (``data/pipeline.py:49-64`` there)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
                  num_epochs: Optional[int] = None, num_workers: int = 2,
-                 queue_depth: int = 4):
+                 queue_depth: int = 4, host_index: int = 0, host_count: int = 1):
         if len(dataset) == 0:
             raise ValueError("empty dataset")
+        if not 0 <= host_index < host_count:
+            raise ValueError(f"host_index {host_index} is not in [0, {host_count})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_epochs = num_epochs
-        self.rng = np.random.RandomState(seed)
+        self.rng = np.random.RandomState(seed + host_index)
+        self.host_index = host_index
+        self.host_count = host_count
         self.num_workers = num_workers
         self.queue_depth = queue_depth
 
@@ -44,7 +53,7 @@ class BatchLoader:
             idx = np.arange(n)
             if self.shuffle:
                 self.rng.shuffle(idx)
-            yield from idx
+            yield from idx[self.host_index::self.host_count]
             epoch += 1
 
     @staticmethod
@@ -100,12 +109,13 @@ class BatchLoader:
 
 class StreamLoader:
     """Endless batches of ``dataset.sample(rng)`` draws by ``num_workers`` threads, each
-    with its own ``RandomState`` seeded from (seed, worker) as in the JAX package on host
-    0, so a run with one worker is deterministic. A worker's failure is raised to the
-    consumer."""
+    with its own ``RandomState`` seeded from (seed, host, worker) as in the JAX package,
+    ``(seed * 1000003 + host_index * 9973 + worker_id) & 0x7FFFFFFF``
+    (``data/pipeline.py:205`` there), so a run with one worker is deterministic and hosts
+    draw decorrelated streams. A worker's failure is raised to the consumer."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0, num_workers: int = 2,
-                 queue_depth: int = 4):
+                 queue_depth: int = 4, host_index: int = 0):
         if not hasattr(dataset, "sample"):
             raise TypeError("StreamLoader needs a dataset with .sample(rng)")
         self.dataset = dataset
@@ -113,13 +123,15 @@ class StreamLoader:
         self.seed = seed
         self.num_workers = num_workers
         self.queue_depth = queue_depth
+        self.host_index = host_index
 
     def __iter__(self) -> Iterator[dict]:
         out_q: queue.Queue = queue.Queue(maxsize=self.queue_depth)
         stop = threading.Event()
 
         def producer(worker_id: int):
-            rng = np.random.RandomState((self.seed * 1000003 + worker_id) & 0x7FFFFFFF)
+            rng = np.random.RandomState(
+                (self.seed * 1000003 + self.host_index * 9973 + worker_id) & 0x7FFFFFFF)
             try:
                 while not stop.is_set():
                     samples = []

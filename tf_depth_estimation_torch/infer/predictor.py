@@ -13,6 +13,7 @@ pose export (``batch_prediction_cam_est.py:96-98``).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from glob import glob
 from typing import Callable, List, Optional, Union
@@ -27,6 +28,7 @@ from tf_depth_estimation_torch.infer.fast_turbo import fold_turbo, folded_turbo_
 from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
 from tf_depth_estimation_torch.models.dispnet import DispNet, DispNetVariant
 from tf_depth_estimation_torch.models.turbo import TurboVariant
+from tf_depth_estimation_torch.parallel.dp import replica_devices
 from tf_depth_estimation_torch.weights import (
     load_variables,
     turbo_from_variables,
@@ -55,10 +57,16 @@ def _postprocess(z: np.ndarray, out_height: int, out_width: int,
 
 
 def _batched_apply(fwd: Callable[[torch.Tensor], torch.Tensor], arrays: np.ndarray,
-                   batch_size: int, device: torch.device) -> List:
+                   batch_size: int, device: torch.device, min_chunk: int = 1) -> List:
     """Run ``fwd`` over N inputs in batches of ``batch_size``, the ragged tail padded to
-    the next power of two; returns the per-batch outputs (a tensor or a tuple of them),
-    de-padded, on the host."""
+    the next power of two, at least ``min_chunk`` and rounded up to a multiple of it (a
+    sharded predictor passes its device count, so every shard of the tail is equal; JAX
+    ``infer/predictor.py:37-99``); returns the per-batch outputs (a tensor or a tuple of
+    them), de-padded, on the host."""
+    if batch_size % min_chunk:
+        # the tail bucket is clamped to batch_size, which keeps it divisible only so
+        raise ValueError(f"batch_size ({batch_size}) must be a multiple of min_chunk "
+                         f"({min_chunk})")
     N = arrays.shape[0]
     outs: List = []
     pending = None  # (device output, rows to keep), queued but not yet pulled
@@ -71,7 +79,8 @@ def _batched_apply(fwd: Callable[[torch.Tensor], torch.Tensor], arrays: np.ndarr
     while i < N:
         n = min(batch_size, N - i)
         chunk = arrays[i:i + n]
-        bucket = min(1 << (n - 1).bit_length(), batch_size)  # next power of two >= n
+        bucket = max(min_chunk, 1 << (n - 1).bit_length())  # next power of two >= n
+        bucket = min(-(-bucket // min_chunk) * min_chunk, batch_size)
         if bucket != n:
             pad = np.zeros((bucket - n, *chunk.shape[1:]), chunk.dtype)
             chunk = np.concatenate([chunk, pad], 0)
@@ -83,6 +92,27 @@ def _batched_apply(fwd: Callable[[torch.Tensor], torch.Tensor], arrays: np.ndarr
     if pending is not None:
         outs.append(pull(*pending))
     return outs
+
+
+def _replicated(make_forward: Callable[[torch.device], Callable], devices: List[torch.device]
+                ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """One forward over ``len(devices)`` replicas (``make_forward(device)`` builds each,
+    its weights on that device): the batch, on ``devices[0]``, is split into equal shards,
+    shard i runs on device i, and the outputs are joined on ``devices[0]``. On the CPU the
+    replicas run in turn. JAX's ``_jit_sharded`` shards the batch over a mesh the same
+    way (``infer/predictor.py:126-137`` there)."""
+    if len(devices) == 1:
+        return make_forward(devices[0])
+    forwards = [make_forward(d) for d in devices]
+
+    def forward(x: torch.Tensor) -> torch.Tensor:
+        outs = []
+        for fwd, d, part in zip(forwards, devices, x.chunk(len(devices))):
+            with torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext():
+                outs.append(fwd(part.to(d, non_blocking=True)))
+        return torch.cat([o.to(devices[0]) for o in outs])
+
+    return forward
 
 
 def _list_frames(dataset_dir: str) -> List[str]:
@@ -116,13 +146,25 @@ class _SingleImagePredictor:
     batch_size: int
     device: torch.device
     _fwd: Callable[[torch.Tensor], torch.Tensor]
+    _min_chunk: int = 1
+
+    def _set_devices(self, device, num_devices: int) -> List[torch.device]:
+        """``num_devices`` replica devices from ``device`` (``parallel.replica_devices``:
+        raises where the machine has fewer), the batch size divisible by their count."""
+        devices = replica_devices(device, num_devices)
+        if self.batch_size % num_devices:
+            raise ValueError(f"batch_size {self.batch_size} must divide evenly across "
+                             f"{num_devices} devices")
+        self.device, self.num_devices, self._min_chunk = devices[0], num_devices, num_devices
+        return devices
 
     def predict_array(self, frames: np.ndarray) -> np.ndarray:
         """[N, H, W, 3] float32 or uint8 -> [N, H, W] float32 disparity."""
         if frames.shape[1:] != (self.height, self.width, 3):
             raise ValueError(f"frames must be [N, {self.height}, {self.width}, 3], "
                              f"got {frames.shape}")
-        outs = _batched_apply(self._fwd, frames, self.batch_size, self.device)
+        outs = _batched_apply(self._fwd, frames, self.batch_size, self.device,
+                              self._min_chunk)
         return np.concatenate(outs, 0)
 
     def predict_directory(self, dataset_dir: str, output_dir: str, *,
@@ -156,15 +198,17 @@ class DepthPredictor(_SingleImagePredictor):
     serve, as in the JAX package (``infer/predictor.py:211-219`` there). depth10_flow (a
     flow decoder), sfm (3-channel linear heads; channel 0 is served) and depth4_nobn (no
     batch norm) are served by the module forward. ``uses_fast_path`` says which forward
-    runs.
+    runs. ``num_devices`` replicates the weights on ``cuda:0 .. N-1`` (from ``device``'s
+    index) and splits each batch over them (``_replicated``); ``batch_size`` must divide
+    by N, and N above the machine's device count raises.
     """
 
     def __init__(self, params, batch_stats=None, *, height: int = 224, width: int = 224,
                  variant: Optional[DispNetVariant] = None, batch_size: int = 32,
                  dtype: torch.dtype = torch.bfloat16, use_fast: Optional[bool] = None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", num_devices: int = 1):
         self.height, self.width, self.batch_size = height, width, batch_size
-        self.device = torch.device(device)
+        devices = self._set_devices(device, num_devices)
         v = variant or DispNetVariant.depth4()
         variables = {"params": params, "batch_stats": batch_stats or {}}
         # the folded forward has batch norm to fold, one decoder and sigmoid heads
@@ -174,19 +218,21 @@ class DepthPredictor(_SingleImagePredictor):
                              f"variant, not {v.name}")
         self.uses_fast_path = foldable and _resolve_use_fast(use_fast, batch_stats, height,
                                                              width)
-        if self.uses_fast_path:
-            folded = fold_weights(variables, dtype=dtype, device=self.device)
-            forward = lambda x: folded_forward(folded, x, disp_scaling=v.disp_scaling,
-                                               min_disp=v.min_disp)[0][..., 0]
-        else:
-            if v.use_bn and not batch_stats:
-                raise ValueError(f"DispNet {v.name} has batch norm: its eval forward "
-                                 f"needs batch_stats")
+        if not self.uses_fast_path and v.use_bn and not batch_stats:
+            raise ValueError(f"DispNet {v.name} has batch norm: its eval forward needs "
+                             f"batch_stats")
+
+        def make_forward(dev):
+            if self.uses_fast_path:
+                folded = fold_weights(variables, dtype=dtype, device=dev)
+                return lambda x: folded_forward(folded, x, disp_scaling=v.disp_scaling,
+                                                min_disp=v.min_disp)[0][..., 0]
             model = DispNet(v, dtype=dtype)
             load_variables(model, variables)
-            model = model.to(self.device).eval()
-            forward = lambda x: model(x.permute(0, 3, 1, 2).float())[0][:, 0]
-        self._fwd = torch.inference_mode()(forward)
+            model = model.to(dev).eval()
+            return lambda x: model(x.permute(0, 3, 1, 2).float())[0][:, 0]
+
+        self._fwd = torch.inference_mode()(_replicated(make_forward, devices))
 
 
 class TurboPredictor(_SingleImagePredictor):
@@ -198,26 +244,29 @@ class TurboPredictor(_SingleImagePredictor):
     variables' collections (numpy trees). The forward is ``infer/fast_turbo.py`` with BN
     folded once here (``use_fast=True``, the default), or the module's eval ``full_only``
     forward in ``dtype``; both are cuDNN convolutions, with no kernel of this package.
+    ``num_devices`` replicates and splits as in ``DepthPredictor``.
     """
 
     def __init__(self, params, batch_stats, *, variant: Optional[TurboVariant] = None,
                  height: int = 384, width: int = 576, batch_size: int = 128,
                  dtype: torch.dtype = torch.bfloat16, use_fast: bool = True,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", num_devices: int = 1):
         self.height, self.width, self.batch_size = height, width, batch_size
-        self.device = torch.device(device)
+        devices = self._set_devices(device, num_devices)
         v = variant or TurboVariant.base()
         v.check_size(height, width)
         variables = {"params": params, "batch_stats": batch_stats}
         self.uses_fast_path = use_fast
-        if use_fast:
-            folded = fold_turbo(variables, dtype=dtype, device=self.device)
-            forward = lambda x: folded_turbo_forward(folded, x, v)[..., 0]
-        else:
-            model = turbo_from_variables(variables, v, device=self.device)
+
+        def make_forward(dev):
+            if use_fast:
+                folded = fold_turbo(variables, dtype=dtype, device=dev)
+                return lambda x: folded_turbo_forward(folded, x, v)[..., 0]
+            model = turbo_from_variables(variables, v, device=dev)
             model.dtype = dtype
-            forward = lambda x: model(x, full_only=True)[0][..., 0]
-        self._fwd = torch.inference_mode()(forward)
+            return lambda x: model(x, full_only=True)[0][..., 0]
+
+        self._fwd = torch.inference_mode()(_replicated(make_forward, devices))
 
 
 def _depth_pose_forward(variables: dict, *, full_resolution: bool, in_channels: int,

@@ -17,12 +17,19 @@ differ from PyTorch's own layers and are written out here:
 
 Parameters stay float32; a layer computes in its input's dtype and casts its weights to
 it, as flax does with ``dtype=bfloat16`` and ``param_dtype=float32``.
+
+Inside ``sync_batch_norm(group)`` a train-mode ``SlimBatchNorm`` takes its batch
+statistics over the whole batch of every rank of ``group`` (``parallel/``): JAX's
+data-parallel step gets the same from XLA, which partitions the batch norm of a sharded
+batch with cross-device reductions (``tf_depth_estimation_tpu/parallel/mesh.py:51-55``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -93,6 +100,40 @@ class TFConvTranspose(nn.Module):
         return conv_transpose2d_same(x, self.weight.to(x.dtype), bias, self.stride)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks of a process group, with the sum of the cotangents as the
+    backward: each rank's loss reaches every rank's input through the shared sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+_NO_SYNC = object()
+_sync_group = _NO_SYNC   # the group of the enclosing sync_batch_norm, if any
+
+
+@contextlib.contextmanager
+def sync_batch_norm(group=None):
+    """Train-mode batch norms inside share their batch statistics over ``group`` (None:
+    the default process group)."""
+    global _sync_group
+    saved, _sync_group = _sync_group, group
+    try:
+        yield
+    finally:
+        _sync_group = saved
+
+
 def bn_affine(bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor):
     """(scale, shift) of the eval slim batch norm, float32: ``x * scale + shift``."""
     s = torch.rsqrt(var.float() + BN_EPS)
@@ -105,9 +146,11 @@ class SlimBatchNorm(nn.Module):
     Eval: ``(x - mean) * rsqrt(var + 1e-3) + bias`` with the running statistics.
     Train: the batch statistics over (N, H, W) in float32, ``var = max(E[x^2] - E[x]^2,
     0)`` (flax's biased "fast" variance), the normalisation in float32 and the result cast
-    back to the input's dtype; the running statistics move as flax moves them,
-    ``r = m * r + (1 - m) * batch`` with ``m`` the decay (``momentum``: 0.99 for depth4,
-    0.999 for depth10_flow). ``nn.BatchNorm2d`` would update with the unbiased variance,
+    back to the input's dtype; inside ``sync_batch_norm`` the per-channel sums of x and
+    x^2 and the count are summed over the process group first, so that every rank
+    normalises by the statistics of the global batch; the running statistics move as
+    flax moves them, ``r = m * r + (1 - m) * batch`` with ``m`` the decay (``momentum``:
+    0.99 for depth4, 0.999 for depth10_flow). ``nn.BatchNorm2d`` would update with the unbiased variance,
     and its ``momentum`` is ``1 - m``.
     """
 
@@ -129,9 +172,16 @@ class SlimBatchNorm(nn.Module):
         if x.numel() == 0:   # an empty batch would write NaN into the running statistics
             raise ValueError(f"train-mode batch norm needs a non-empty batch, got "
                              f"{tuple(x.shape)}")
-        xf = x.float()
-        mean = xf.mean((0, 2, 3))
-        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if _sync_group is not _NO_SYNC:
+            c = x.shape[1]
+            sums = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                              xf.new_tensor([x.numel() // c])])
+            sums = _AllReduceSum.apply(sums, _sync_group)
+            mean, mean_sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        else:
+            mean, mean_sq = xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         y = (xf - mean[:, None, None]) * torch.rsqrt(var + BN_EPS)[:, None, None]
         y = y + self.bias[:, None, None]
         with torch.no_grad():

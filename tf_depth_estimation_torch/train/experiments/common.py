@@ -5,30 +5,30 @@ import argparse
 import glob
 import os
 
+import numpy as np
 import torch
 
 from tf_depth_estimation_torch.data.demon import DemonDataset, DemonReaderParams
 from tf_depth_estimation_torch.data.demon_v1 import DemonV1Dataset
-from tf_depth_estimation_torch.data.pipeline import BatchLoader, StreamLoader, device_prefetch
+from tf_depth_estimation_torch.data.pipeline import (
+    BatchLoader,
+    IterBatcher,
+    StreamLoader,
+    device_prefetch,
+)
+from tf_depth_estimation_torch.data.synthetic import _texture
 from tf_depth_estimation_torch.train.checkpoint import CheckpointManager
 from tf_depth_estimation_torch.train.loop import MetricLogger
-
-# flags of the JAX CLIs that later slices bring; the port refuses them rather than
-# ignoring them
-NOT_PORTED = {
-    "native_loader": "the C++ loader (native/) is bound by a later slice",
-    "tensorboard": "TensorBoard summaries are not ported; metrics go to metrics.jsonl",
-    "rich_summaries": "image and histogram summaries are not ported",
-}
 
 
 def base_parser(description: str, batch_size: int, max_steps: int) -> argparse.ArgumentParser:
     """The flags of ``tf_depth_estimation_tpu/train/experiments/common.py``, with its types
-    and defaults, plus ``--device``. Those of later slices are refused (``NOT_PORTED``);
-    ``--validate_dir`` and ``--init_checkpoint_file`` are accepted and unread, as in
-    JAX, and ``--image_summary_freq`` and ``--fixture_images`` are read there only under
-    ``--rich_summaries``. ``--demon_v1`` is read by ``demon_loader``; the CLIs that read
-    no DeMoN data accept it unread, as in JAX."""
+    and defaults, plus ``--device``. ``--validate_dir`` and ``--init_checkpoint_file`` are
+    accepted and unread, as in JAX; ``--image_summary_freq`` and ``--fixture_images`` are
+    read under ``--rich_summaries`` by the CLIs that make image summaries (depth_only,
+    optflow_combine, split_training's phase 1), and the others accept them unread, as in
+    JAX. ``--demon_v1`` is read by ``demon_loader`` and ``--native_loader`` by
+    ``pair_loader``; the CLIs that read no such data accept them unread, as in JAX."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--dataset_dir", default="")
     p.add_argument("--validate_dir", default="./validation")
@@ -45,23 +45,25 @@ def base_parser(description: str, batch_size: int, max_steps: int) -> argparse.A
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--num_epochs", type=int, default=1500)
-    p.add_argument("--image_summary_freq", type=int, default=500)
-    p.add_argument("--fixture_images", default=None)
+    p.add_argument("--native_loader", action="store_true",
+                   help="decode the colon pairs' JPEG and depth through the C++ loader "
+                        "(native/fastloader.cc, built with g++ at first use)")
     p.add_argument("--demon_v1", action="store_true",
                    help="stream classic DeMoN v1 HDF5 archives in place "
                         "(sun3d/rgbd/mvs/scenes11 as released) instead of the flat schema")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="mirror metrics to TensorBoard event files under "
+                        "<checkpoint_dir>/sum (needs the tensorboard package)")
+    p.add_argument("--rich_summaries", action="store_true",
+                   help="per-scale image and histogram summaries and the fixed-fixture "
+                        "inference (ref split_training.py:283-325,380-393); implies "
+                        "--tensorboard")
+    p.add_argument("--image_summary_freq", type=int, default=500)
+    p.add_argument("--fixture_images", default=None,
+                   help="two comma-separated image paths for the fixture inference (the "
+                        "reference's sculpture pair); default: a seeded synthetic pair")
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
-    for flag, why in NOT_PORTED.items():
-        p.add_argument(f"--{flag}", action="store_true", help=f"not ported: {why}")
     return p
-
-
-def parse(p: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
-    args = p.parse_args(argv)
-    for flag, why in NOT_PORTED.items():
-        if getattr(args, flag):
-            p.error(f"--{flag} is not ported to tf_depth_estimation_torch yet: {why}")
-    return args
 
 
 def compute_dtype(args) -> torch.dtype:
@@ -69,9 +71,44 @@ def compute_dtype(args) -> torch.dtype:
 
 
 def pair_loader(args, ds, batch_size: int):
-    """Shuffled colon pair-dataset batches on ``args.device``, two in flight."""
-    loader = BatchLoader(ds, batch_size, seed=args.seed, num_epochs=args.num_epochs)
+    """Shuffled colon pair-dataset batches on ``args.device``, two in flight.
+    ``--native_loader``
+    decodes through the C++ loader's worker threads (``data/native.py``: the JPEG, the
+    TF1 resize and the raw depth), batched by ``IterBatcher``, the analog of the
+    reference's TF queue-runner threads (``imageselect_Dataloader_optflow.py:41-56``);
+    where the loader cannot build it raises, as JAX does, and never falls back."""
+    if args.native_loader:
+        from tf_depth_estimation_torch.data import native
+
+        if not native.available():
+            raise RuntimeError(f"--native_loader needs the C++ loader: "
+                               f"{native.build_error()}")
+        sampler = native.NativePairSampler(ds, seed=args.seed)
+        loader = IterBatcher(lambda: iter(sampler), batch_size, num_epochs=args.num_epochs)
+    else:
+        loader = BatchLoader(ds, batch_size, seed=args.seed, num_epochs=args.num_epochs)
     return device_prefetch(iter(loader), args.device)
+
+
+def fixture_pair(args, H: int, W: int) -> np.ndarray:
+    """[1, H, W, 6] float32 fixture pair in DeMoN's normalisation (/255 - 0.5, ref
+    ``split_training.py:386-388``): the two images of ``--fixture_images`` (the
+    reference's sculpture pair; PIL, Lanczos resize) or a seeded synthetic texture and
+    its copy shifted 3 pixels right, as the JAX package makes it."""
+    if args.fixture_images:
+        from PIL import Image
+
+        paths = args.fixture_images.split(",")
+        if len(paths) != 2:
+            raise ValueError("--fixture_images needs exactly two comma-separated paths")
+        imgs = [np.asarray(Image.open(p).convert("RGB").resize((W, H), Image.LANCZOS),
+                           np.float32) for p in paths]
+        pair = np.concatenate([im / 255.0 - 0.5 for im in imgs], axis=-1)
+    else:
+        left = _texture(np.random.RandomState(1234), H, W)
+        right = np.roll(left, 3, axis=1)  # a small horizontal parallax
+        pair = np.concatenate([left / 255.0 - 0.5, right / 255.0 - 0.5], axis=-1)
+    return pair[np.newaxis].astype(np.float32)
 
 
 def demon_sources(dataset_dir: str):
@@ -108,9 +145,11 @@ def demon_loader(args, height: int, width: int, test_phase: bool = False):
 
 
 def setup_run(args, state, group: str = "model"):
-    """Checkpoint manager of ``group`` + logger, and the resume of ``--continue_train``."""
+    """Checkpoint manager of ``group`` + logger (mirrored to TensorBoard under
+    ``--tensorboard`` or ``--rich_summaries``), and the resume of ``--continue_train``."""
     mgr = CheckpointManager(args.checkpoint_dir, group)
-    logger = MetricLogger(args.checkpoint_dir)
+    logger = MetricLogger(args.checkpoint_dir,
+                          tensorboard=args.tensorboard or args.rich_summaries)
     if args.continue_train and mgr.latest_step() is not None:
         state = mgr.restore(state)
         print(f"resumed from step {state.step}")

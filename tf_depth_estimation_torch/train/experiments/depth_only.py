@@ -14,6 +14,9 @@ the GPU. ::
 
 Writes ``C/metrics.jsonl`` (``"train"`` and ``"val"`` records) and ``C/model-<step>.npz``
 (+ ``.opt.pt``). A dataset without a ``val.txt`` split trains without validation.
+``--native_loader`` decodes through the C++ loader; ``--tensorboard`` mirrors the records
+to ``C/sum``, and ``--rich_summaries`` adds the image and histogram summaries there every
+``--image_summary_freq`` steps (``train/summaries.py:make_depth_summary_fn``).
 """
 from __future__ import annotations
 
@@ -29,12 +32,12 @@ from tf_depth_estimation_torch.train.experiments.common import (
     base_parser,
     compute_dtype,
     pair_loader,
-    parse,
     setup_run,
 )
 from tf_depth_estimation_torch.train.loop import run_training
 from tf_depth_estimation_torch.train.state import create_train_state
 from tf_depth_estimation_torch.train.steps import make_depth_only_step, make_depth_only_val_step
+from tf_depth_estimation_torch.train.summaries import make_depth_summary_fn
 
 
 def parse_args(argv=None):
@@ -44,7 +47,7 @@ def parse_args(argv=None):
     p.add_argument("--turbo", default="",
                    help="train a TurboDepthNet of this preset (TurboVariant.PRESETS) "
                         "instead of depth4 DispNet; 'colon' fits 240x720")
-    args = parse(p, argv)
+    args = p.parse_args(argv)
     if args.turbo:
         try:
             TurboVariant.by_name(args.turbo).check_size(args.image_height,
@@ -98,7 +101,9 @@ def main(argv=None):
         state=state, train_step=make_depth_only_step(w), batches=batches,
         max_steps=args.max_steps, logger=logger, checkpoint=mgr,
         save_latest_freq=args.save_latest_freq, summary_freq=args.summary_freq,
-        validation_check=args.validation_check, val_fn=validation(args, w))
+        validation_check=args.validation_check, val_fn=validation(args, w),
+        image_summary_fn=make_depth_summary_fn(w) if args.rich_summaries else None,
+        image_summary_freq=args.image_summary_freq)
     logger.close()
     return state, last
 

@@ -26,7 +26,6 @@ from tf_depth_estimation_torch.train.experiments.common import (
     base_parser,
     compute_dtype,
     demon_loader,
-    parse,
     setup_run,
 )
 from tf_depth_estimation_torch.train.loop import run_training
@@ -39,7 +38,7 @@ def parse_args(argv=None):
     p.set_defaults(summary_freq=1000)
     p.add_argument("--image_height", type=int, default=192)
     p.add_argument("--image_width", type=int, default=256)
-    return parse(p, argv)
+    return p.parse_args(argv)
 
 
 def loss_weights(args) -> LossWeights:

@@ -31,7 +31,6 @@ from tf_depth_estimation_torch.train.experiments.common import (
     base_parser,
     compute_dtype,
     demon_loader,
-    parse,
     setup_run,
 )
 from tf_depth_estimation_torch.train.loop import run_training
@@ -45,7 +44,7 @@ def parse_args(argv=None):
     p.add_argument("--image_width", type=int, default=256)
     p.add_argument("--gt_pose", action="store_true",
                    help="gtdepth_gtcam variant (GT-pose warps, sig loss)")
-    return parse(p, argv)
+    return p.parse_args(argv)
 
 
 def loss_weights(args) -> LossWeights:

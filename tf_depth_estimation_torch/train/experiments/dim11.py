@@ -32,7 +32,6 @@ from tf_depth_estimation_torch.models.depth_pose import DepthPoseNet
 from tf_depth_estimation_torch.train.experiments.common import (
     base_parser,
     compute_dtype,
-    parse,
     setup_run,
 )
 from tf_depth_estimation_torch.train.loop import run_training
@@ -45,7 +44,7 @@ def parse_args(argv=None):
     p.add_argument("--image_height", type=int, default=224)
     p.add_argument("--image_width", type=int, default=224)
     p.add_argument("--depth_dir", default=None)
-    return parse(p, argv)
+    return p.parse_args(argv)
 
 
 def loss_weights(args) -> LossWeights:

@@ -37,7 +37,6 @@ from tf_depth_estimation_torch.train.distill import (
 from tf_depth_estimation_torch.train.experiments.common import (
     base_parser,
     compute_dtype,
-    parse,
     setup_run,
 )
 from tf_depth_estimation_torch.train.loop import run_training
@@ -125,7 +124,7 @@ def parse_args(argv=None):
     p.add_argument("--image_width", type=int, default=576)
     p.add_argument("--no_aug", dest="aug", action="store_false",
                    help="turn off the mirror-x / rot180 input augmentation")
-    args = parse(p, argv)
+    args = p.parse_args(argv)
     try:
         TurboVariant.by_name(args.turbo_variant).check_size(args.image_height,
                                                             args.image_width)

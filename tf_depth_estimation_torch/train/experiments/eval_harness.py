@@ -36,7 +36,6 @@ from tf_depth_estimation_torch.train.experiments.common import (
     base_parser,
     compute_dtype,
     demon_loader,
-    parse,
 )
 from tf_depth_estimation_torch.utils.npz import load_variables_npz
 from tf_depth_estimation_torch.weights import load_variables
@@ -51,7 +50,7 @@ def parse_args(argv=None):
     p.add_argument("--image_width", type=int, default=256)
     p.add_argument("--eval_batches", type=int, default=10)
     p.add_argument("--checkpoint_dir_single", default="./checkpoints_single")
-    return parse(p, argv)
+    return p.parse_args(argv)
 
 
 def loss_weights(args) -> LossWeights:

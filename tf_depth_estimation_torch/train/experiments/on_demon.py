@@ -25,7 +25,6 @@ from tf_depth_estimation_torch.train.experiments.common import (
     base_parser,
     compute_dtype,
     demon_loader,
-    parse,
     setup_run,
 )
 from tf_depth_estimation_torch.train.loop import run_training
@@ -40,7 +39,7 @@ def parse_args(argv=None):
     p.add_argument("--image_width", type=int, default=256)
     p.add_argument("--optimize_depth", action="store_true",
                    help="also optimize the L1 depth term (the reference computes but drops it)")
-    return parse(p, argv)
+    return p.parse_args(argv)
 
 
 def loss_weights(args) -> LossWeights:

@@ -23,12 +23,12 @@ from tf_depth_estimation_torch.train.experiments.common import (
     base_parser,
     compute_dtype,
     pair_loader,
-    parse,
     setup_run,
 )
 from tf_depth_estimation_torch.train.loop import run_training
 from tf_depth_estimation_torch.train.state import create_train_state
 from tf_depth_estimation_torch.train.steps import make_optflow_combine_step
+from tf_depth_estimation_torch.train.summaries import make_depth_summary_fn
 
 
 def parse_args(argv=None):
@@ -37,7 +37,7 @@ def parse_args(argv=None):
     p.add_argument("--image_width", type=int, default=720)
     p.add_argument("--resized_height", type=int, default=224)
     p.add_argument("--resized_width", type=int, default=480)
-    return parse(p, argv)
+    return p.parse_args(argv)
 
 
 def main(argv=None):
@@ -58,7 +58,9 @@ def main(argv=None):
     state, last = run_training(
         state=state, train_step=make_optflow_combine_step(w), batches=batches,
         max_steps=args.max_steps, logger=logger, checkpoint=mgr,
-        save_latest_freq=args.save_latest_freq, summary_freq=args.summary_freq)
+        save_latest_freq=args.save_latest_freq, summary_freq=args.summary_freq,
+        image_summary_fn=make_depth_summary_fn(w) if args.rich_summaries else None,
+        image_summary_freq=args.image_summary_freq)
     logger.close()
     return state, last
 

@@ -38,7 +38,6 @@ from tf_depth_estimation_torch.train.experiments.common import (
     base_parser,
     compute_dtype,
     pair_loader,
-    parse,
     setup_run,
 )
 from tf_depth_estimation_torch.train.loop import run_training
@@ -69,7 +68,7 @@ def parse_args(argv=None):
     p.add_argument("--image_width", type=int, default=720)
     p.add_argument("--resized_height", type=int, default=224)
     p.add_argument("--resized_width", type=int, default=480)
-    return parse(p, argv)
+    return p.parse_args(argv)
 
 
 def loss_weights(args) -> LossWeights:

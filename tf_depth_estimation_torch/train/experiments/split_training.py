@@ -36,12 +36,13 @@ from tf_depth_estimation_torch.train.experiments.common import (
     base_parser,
     compute_dtype,
     demon_loader,
-    parse,
+    fixture_pair,
     setup_run,
 )
 from tf_depth_estimation_torch.train.loop import MetricLogger, run_training
 from tf_depth_estimation_torch.train.state import TrainState, create_train_state
 from tf_depth_estimation_torch.train.steps import make_pairwise_step, make_single_depth_step
+from tf_depth_estimation_torch.train.summaries import make_pairwise_summary_fn
 
 PAIR_GROUP, SINGLE_GROUP = "model_pairdepth", "model_singledepth"
 
@@ -55,7 +56,7 @@ def parse_args(argv=None):
     p.add_argument("--image_width", type=int, default=256)
     p.add_argument("--phase", choices=["pair", "single", "both"], default="both")
     p.add_argument("--continue_train_single", action="store_true")
-    return parse(p, argv)
+    return p.parse_args(argv)
 
 
 def loss_weights(args) -> LossWeights:
@@ -83,12 +84,19 @@ def single_state(args) -> TrainState:
 
 
 def train_pair(args, w: LossWeights, state: TrainState, batches: Iterator[dict]):
-    """Phase 1 over DeMoN ``batches`` to ``--max_steps``; returns the state."""
+    """Phase 1 over DeMoN ``batches`` to ``--max_steps``; returns the state. Under
+    ``--rich_summaries`` every ``--image_summary_freq`` steps the pairwise summaries
+    and the fixture pair's inference go to the TensorBoard mirror."""
     mgr, logger, state = setup_run(args, state, group=PAIR_GROUP)
+    summary_fn = None
+    if args.rich_summaries:
+        summary_fn = make_pairwise_summary_fn(
+            w, fixture_pair(args, args.image_height, args.image_width))
     state, _ = run_training(
         state=state, train_step=make_pairwise_step(w), batches=batches,
         max_steps=args.max_steps, logger=logger, checkpoint=mgr,
-        save_latest_freq=args.save_latest_freq, summary_freq=args.summary_freq)
+        save_latest_freq=args.save_latest_freq, summary_freq=args.summary_freq,
+        image_summary_fn=summary_fn, image_summary_freq=args.image_summary_freq)
     logger.close()
     return state
 

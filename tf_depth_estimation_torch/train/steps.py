@@ -70,6 +70,9 @@ def make_depth_only_val_step(w: LossWeights):
             _, comps = depth_only_val_loss(outs, batch["label"], w)
         return comps
 
+    # si_log_rmse is the square root of means: the mean of its values on two shards is
+    # not its value on the whole batch (parallel/dp.py:make_dp_step refuses it)
+    val_step.not_data_parallel = "si_log_rmse is not a mean over the batch's samples"
     return val_step
 
 
